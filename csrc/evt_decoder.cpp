@@ -3,7 +3,7 @@
 // Replaces the reference's dependency on the Metavision SDK RAW reader
 // (reference: bias_events_iterator.py:8-9,83-90 uses
 // metavision_core.event_io.RawReaderBase) with a standalone C++ decoder
-// exposed through a C ABI consumed via ctypes (xmaps_tpu/io/evt_decoder.py).
+// exposed through a C ABI consumed via ctypes (xmaps/io/evt_decoder.py).
 //
 // Format references: Prophesee public EVT 2.0 / EVT 3.0 encoding specs.
 //   EVT2 (32-bit words):  [31:28] type, CD: [27:22] ts(6b) [21:11] x [10:0] y

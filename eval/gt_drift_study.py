@@ -155,12 +155,12 @@ def main(argv=None):
                     help="comma-separated scene subset (default: all)")
     args = ap.parse_args(argv)
 
-    from xmaps_tpu.utils.jaxenv import respect_jax_platforms
+    from xmaps.utils.cache import enable_compile_cache
 
-    respect_jax_platforms()  # JAX_PLATFORMS=cpu runs the study off-TPU
-    from xmaps_tpu.apps import eval_esl, eval_xmaps
-    from xmaps_tpu.utils.eval_metrics import evaluation_stats
-    from xmaps_tpu.utils.synthetic import (
+    enable_compile_cache()
+    from xmaps.apps import eval_esl, eval_xmaps
+    from xmaps.utils.eval_metrics import evaluation_stats
+    from xmaps.utils.synthetic import (
         make_synthetic_calibration,
         simulate_plane_events,
     )

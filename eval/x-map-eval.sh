@@ -6,7 +6,7 @@
 #
 # Unlike the reference, no GNU-parallel process fan-out is needed: every
 # method is a dense device program that batches scans on one chip (and
-# eval_xmaps can shard sequences across chips, the TPU-native analog).
+# eval_xmaps can shard sequences across devices in one program).
 
 set -euo pipefail
 
@@ -33,22 +33,22 @@ do
 
     if [ "$compute_mc3d" = true ]; then
         echo "Running MC3D baseline..."
-        python3 -m xmaps_tpu.apps.eval_mc3d -object_dir "${seq_folder}" \
+        python3 -m xmaps.apps.eval_mc3d -object_dir "${seq_folder}" \
             -num_scans "${num_scans}" -calib "${calib_yaml}"
     fi
 
     if [ "$compute_esl" = true ]; then
         echo "Running ESL (init + refined GT)..."
-        python3 -m xmaps_tpu.apps.eval_esl -object_dir "${seq_folder}" \
+        python3 -m xmaps.apps.eval_esl -object_dir "${seq_folder}" \
             -num_scans "${num_scans}" -calib "${calib_yaml}"
     fi
 
     if [ "$compute_xmaps" = true ]; then
         echo "Running X-maps..."
-        python3 -m xmaps_tpu.apps.eval_xmaps -object_dir "${seq_folder}" \
+        python3 -m xmaps.apps.eval_xmaps -object_dir "${seq_folder}" \
             -num_scans "${num_scans}" -calib "${calib_yaml}"
     fi
 done
 
 echo "Running evaluation script to compare results..."
-python3 -m xmaps_tpu.apps.eval_table -object_dir "${static_folder}" -max_depth 500
+python3 -m xmaps.apps.eval_table -object_dir "${static_folder}" -max_depth 500

@@ -98,7 +98,7 @@ def oracle_frame_projector_view(
 ):
     """Full reference per-frame path, projector view
     (depth_reprojection_pipe.py:121-167)."""
-    from xmaps_tpu.utils.colormap import TURBO_BGR_U8
+    from xmaps.utils.colormap import TURBO_BGR_U8
 
     xr, yr = oracle_rectify_i16(events, maps.disp_cam_mapx_i16, maps.disp_cam_mapy_i16)
     disp, inlier, _ = oracle_disparity(xr, yr, events["t"], x_map, t_px_scale)

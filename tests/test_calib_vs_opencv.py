@@ -9,7 +9,7 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from xmaps_tpu.calib import (
+from xmaps.calib import (
     CalibrationParams,
     CamProjMaps,
     init_undistort_rectify_map,
@@ -18,7 +18,7 @@ from xmaps_tpu.calib import (
     stereo_rectify,
     undistort_points,
 )
-from xmaps_tpu.calib.maps import generate_linear_projector_time_map, remap_nearest
+from xmaps.calib.maps import generate_linear_projector_time_map, remap_nearest
 
 
 def _random_calib(rng):

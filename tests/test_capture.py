@@ -5,7 +5,7 @@ for the reference's Metavision HAL path, bias_events_iterator.py:66-90)."""
 import numpy as np
 import pytest
 
-from xmaps_tpu.io.capture import (
+from xmaps.io.capture import (
     CaptureBackend,
     CaptureSession,
     LiveEventsIterator,
@@ -13,7 +13,7 @@ from xmaps_tpu.io.capture import (
     open_capture,
     register_capture_backend,
 )
-from xmaps_tpu.io.evt_decoder import EVENT_DTYPE
+from xmaps.io.evt_decoder import EVENT_DTYPE
 
 
 class _DummySession(CaptureSession):
@@ -42,7 +42,7 @@ class _DummyBackend(CaptureBackend):
 
 @pytest.fixture
 def dummy_registered():
-    import xmaps_tpu.io.capture as cap
+    import xmaps.io.capture as cap
 
     saved = dict(cap._REGISTRY)
     register_capture_backend(_DummyBackend())
@@ -88,8 +88,8 @@ def test_bias_file_is_programmed(dummy_registered, tmp_path):
 def test_synthetic_live_stream_segments_into_frames():
     """The synthetic backend's wall-clock stream must flow through the
     standard packetize -> trigger-finder path and yield whole frames."""
-    from xmaps_tpu.runtime.trigger_finder import RobustTriggerFinder
-    from xmaps_tpu.utils.stats import StatsPrinter
+    from xmaps.runtime.trigger_finder import RobustTriggerFinder
+    from xmaps.utils.stats import StatsPrinter
 
     fps = 60
     session = open_capture(

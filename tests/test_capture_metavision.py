@@ -13,7 +13,7 @@ import types
 import numpy as np
 import pytest
 
-from xmaps_tpu.io.evt_decoder import EVENT_DTYPE
+from xmaps.io.evt_decoder import EVENT_DTYPE
 
 # Metavision's EventCD layout (x/y u16, p i16, t i64)
 MV_DTYPE = np.dtype(
@@ -105,7 +105,7 @@ def fake_sdk(monkeypatch):
 
 def test_adapter_end_to_end(fake_sdk, tmp_path):
     packets, opened = fake_sdk
-    from xmaps_tpu.io.capture_metavision import MetavisionCaptureBackend
+    from xmaps.io.capture_metavision import MetavisionCaptureBackend
 
     session = MetavisionCaptureBackend().open("serial42")
     assert opened["device"].serial == "serial42"
@@ -127,14 +127,14 @@ def test_adapter_end_to_end(fake_sdk, tmp_path):
 
 
 def test_adapter_no_camera(fake_sdk):
-    from xmaps_tpu.io.capture_metavision import MetavisionCaptureBackend
+    from xmaps.io.capture_metavision import MetavisionCaptureBackend
 
     with pytest.raises(RuntimeError, match="No Prophesee camera"):
         MetavisionCaptureBackend().open("missing")
 
 
 def test_adapter_close_stops_stream(fake_sdk):
-    from xmaps_tpu.io.capture_metavision import MetavisionCaptureBackend
+    from xmaps.io.capture_metavision import MetavisionCaptureBackend
 
     session = MetavisionCaptureBackend().open("")
     it = session.packets(delta_t=1000)
@@ -148,8 +148,8 @@ def test_registry_integration(fake_sdk, monkeypatch):
     """With the (faked) SDK importable, register_metavision_backend adds
     the backend and open_capture auto-picks it as the sole hardware
     backend, programming biases from the .bias file."""
-    import xmaps_tpu.io.capture as capture
-    from xmaps_tpu.io.capture_metavision import register_metavision_backend
+    import xmaps.io.capture as capture
+    from xmaps.io.capture_metavision import register_metavision_backend
 
     monkeypatch.setattr(
         capture, "_REGISTRY", dict(capture._REGISTRY), raising=True
@@ -157,7 +157,7 @@ def test_registry_integration(fake_sdk, monkeypatch):
     assert register_metavision_backend() is True
     assert "metavision" in capture.capture_backends()
 
-    import xmaps_tpu.io.biases as biases_mod
+    import xmaps.io.biases as biases_mod
 
     bias_path = "/root/reference/data/nebra_evk3.0/live_cam.bias"
     import os

@@ -17,7 +17,7 @@ import struct
 import numpy as np
 import pytest
 
-from xmaps_tpu.io.evt_decoder import (
+from xmaps.io.evt_decoder import (
     EVENT_DTYPE,
     EvtDecoder,
     _load_native,
@@ -110,8 +110,8 @@ def test_evt2_random_word_soup(tmp_path, seed):
 def test_evt3_bitflipped_synthetic_stream(tmp_path, seed):
     """A valid encoded stream with random bit flips: decoders must agree
     on how corruption is absorbed (skip/misparse identically), not crash."""
-    from xmaps_tpu.io.evt_encode import encode_evt3
-    from xmaps_tpu.utils.synthetic import (
+    from xmaps.io.evt_encode import encode_evt3
+    from xmaps.utils.synthetic import (
         make_synthetic_calibration,
         simulate_plane_events,
     )
@@ -139,7 +139,7 @@ def test_evt3_bitflipped_synthetic_stream(tmp_path, seed):
 @pytest.mark.parametrize("seed", range(4))
 def test_dat_random_records(tmp_path, seed):
     """Random DAT record pairs decode identically in both implementations."""
-    from xmaps_tpu.io.evt_decoder import decode_dat_numpy
+    from xmaps.io.evt_decoder import decode_dat_numpy
 
     rng = np.random.default_rng(400 + seed)
     words = rng.integers(0, 1 << 32, size=2000, dtype=np.uint32)

@@ -12,7 +12,7 @@ import struct
 import numpy as np
 import pytest
 
-from xmaps_tpu.io.evt_decoder import (
+from xmaps.io.evt_decoder import (
     EvtDecoder,
     decode_evt2_numpy,
     decode_evt3_numpy,
@@ -225,7 +225,7 @@ def test_native_lib_path_tracks_source_hash(monkeypatch, tmp_path):
     import hashlib
     import os
 
-    from xmaps_tpu.io import evt_decoder as mod
+    from xmaps.io import evt_decoder as mod
 
     src = mod._CSRC
     assert os.path.exists(src)

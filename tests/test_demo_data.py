@@ -4,12 +4,12 @@ path of the README)."""
 
 import numpy as np
 
-from xmaps_tpu.apps.make_demo_data import main as demo_main, shapes_depth_map
-from xmaps_tpu.calib.maps import CalibrationParams
-from xmaps_tpu.io.event_iterator import FileEventsIterator
-from xmaps_tpu.models.depth_pipeline import XMapsDepthEngine
-from xmaps_tpu.runtime.trigger_finder import RobustTriggerFinder
-from xmaps_tpu.utils.stats import StatsPrinter
+from xmaps.apps.make_demo_data import main as demo_main, shapes_depth_map
+from xmaps.calib.maps import CalibrationParams
+from xmaps.io.event_iterator import FileEventsIterator
+from xmaps.models.depth_pipeline import XMapsDepthEngine
+from xmaps.runtime.trigger_finder import RobustTriggerFinder
+from xmaps.utils.stats import StatsPrinter
 
 
 def test_demo_data_roundtrip(tmp_path):
@@ -61,7 +61,7 @@ def test_dump_frame_csv(tmp_path):
     with raw coords, rectified coords and disparity."""
     import csv
 
-    from xmaps_tpu.utils.synthetic import (
+    from xmaps.utils.synthetic import (
         make_synthetic_calibration,
         simulate_plane_events,
     )

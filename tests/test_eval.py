@@ -6,12 +6,12 @@ import os
 import numpy as np
 import pytest
 
-from xmaps_tpu.utils.eval_metrics import (
+from xmaps.utils.eval_metrics import (
     combine_depths,
     evaluation_stats,
     load_and_filter,
 )
-from xmaps_tpu.utils.ply import read_ply, write_ply
+from xmaps.utils.ply import read_ply, write_ply
 
 
 def _reference_stats(estimate, groundtruth):
@@ -106,8 +106,8 @@ def test_eval_app_end_to_end(tmp_path):
     """Synthetic scans -> eval_xmaps -> depth npy + ply; recovered depth
     must match the simulated plane depth (the offline analog of the
     reference's ESL evaluation, SURVEY.md §3.2)."""
-    from xmaps_tpu.apps.eval_xmaps import main as eval_main
-    from xmaps_tpu.utils.synthetic import (
+    from xmaps.apps.eval_xmaps import main as eval_main
+    from xmaps.utils.synthetic import (
         make_synthetic_calibration,
         simulate_plane_events,
     )
@@ -159,10 +159,10 @@ def test_eval_app_end_to_end(tmp_path):
 
 def test_eval_app_sharded_matches_single(tmp_path):
     """-devices N shards scans across the virtual CPU mesh and must write
-    the same depth maps as the single-device path (the TPU-native analog
-    of the reference's GNU-parallel fan-out, eval/x-map-eval.sh:49-66)."""
-    from xmaps_tpu.apps.eval_xmaps import main as eval_main
-    from xmaps_tpu.utils.synthetic import (
+    the same depth maps as the single-device path (the single-program
+    analog of the reference's GNU-parallel fan-out, eval/x-map-eval.sh:49-66)."""
+    from xmaps.apps.eval_xmaps import main as eval_main
+    from xmaps.utils.synthetic import (
         make_synthetic_calibration,
         simulate_plane_events,
     )
@@ -205,11 +205,11 @@ def test_full_eval_chain(tmp_path, capsys):
     """The complete offline evaluation chain on synthetic scans: ESL
     (init + refined GT) -> MC3D -> X-maps -> comparison table (the
     reference's eval/x-map-eval.sh flow, SURVEY.md §3.3)."""
-    from xmaps_tpu.apps.eval_esl import main as esl_main
-    from xmaps_tpu.apps.eval_mc3d import main as mc3d_main
-    from xmaps_tpu.apps.eval_table import main as table_main
-    from xmaps_tpu.apps.eval_xmaps import main as xmaps_main
-    from xmaps_tpu.utils.synthetic import (
+    from xmaps.apps.eval_esl import main as esl_main
+    from xmaps.apps.eval_mc3d import main as mc3d_main
+    from xmaps.apps.eval_table import main as table_main
+    from xmaps.apps.eval_xmaps import main as xmaps_main
+    from xmaps.utils.synthetic import (
         make_synthetic_calibration,
         simulate_plane_events,
     )
@@ -261,7 +261,7 @@ def test_full_eval_chain(tmp_path, capsys):
 
 def test_eval_table_app(tmp_path, rng):
     """eval_table over a synthetic directory layout prints a table line."""
-    from xmaps_tpu.apps.eval_table import main as table_main
+    from xmaps.apps.eval_table import main as table_main
 
     seq = tmp_path / "seq1"
     for sub in ("esl/depth_optim_filtered", "esl/depth_init", "x_maps/depth_init", "mc3d/depth"):

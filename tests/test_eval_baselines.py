@@ -8,20 +8,20 @@ small synthetic inputs.
 import numpy as np
 import pytest
 
-from xmaps_tpu.apps.eval_esl import (
+from xmaps.apps.eval_esl import (
     RefinePlan,
     depth_optimization_dense,
     disparity_init_dense,
     normalize_scan,
 )
-from xmaps_tpu.apps.eval_mc3d import build_mc3d_tables, mc3d_disparity_dense
-from xmaps_tpu.calib.maps import CamProjMaps
-from xmaps_tpu.utils.denoise import (
+from xmaps.apps.eval_mc3d import build_mc3d_tables, mc3d_disparity_dense
+from xmaps.calib.maps import CamProjMaps
+from xmaps.utils.denoise import (
     bilateral_filter,
     median_blur_3x3,
     tv_denoise_split_bregman,
 )
-from xmaps_tpu.utils.synthetic import make_synthetic_calibration
+from xmaps.utils.synthetic import make_synthetic_calibration
 
 
 @pytest.fixture(scope="module")
@@ -61,6 +61,38 @@ def test_disparity_init_matches_oracle(rng):
     got = np.asarray(disparity_init_dense(cam, proj, min_disp=5, max_disp=60))
     want = oracle_disparity_init(cam, proj, min_disp=5, max_disp=60)
     np.testing.assert_array_equal(got, want)
+
+
+def _search_case(rng, trial):
+    """One monotone-row scan case (the inputs of the former binary-search
+    kernel's tests): sorted projector rows, plateaus on odd trials, and
+    exact camera/projector value matches that exercise the tie rules."""
+    H, W = 24, 300 + 80 * trial
+    base = np.sort(rng.random((H, W)).astype(np.float32), axis=1)
+    if trial % 2:
+        base = np.round(base * 60) / 60  # equal-value plateaus
+    mask = rng.random((H, W)) < (0.15 + 0.1 * trial)
+    proj = np.where(mask, base + 1e-3, 0).astype(np.float32)
+    cam = np.where(
+        rng.random((H, W)) < 0.3, rng.random((H, W)), 0
+    ).astype(np.float32)
+    cc = rng.integers(0, W - 130, 40)
+    rr = rng.integers(0, H, 40)
+    cam[rr, cc] = proj[rr, np.minimum(cc + 17, W - 1)]
+    return cam, proj, 120 + 60 * trial
+
+
+@pytest.mark.parametrize("trial", range(3))
+def test_disparity_init_matches_oracle_monotone_rows(trial):
+    """The dense brute force on rectified-ramp-like rows (monotone, with
+    plateaus and exact ties) against the reference transcription."""
+    rng = np.random.default_rng(7)
+    for k in range(trial + 1):  # replay the seed-7 stream up to this trial
+        cam, proj, md = _search_case(rng, k)
+    got = np.asarray(disparity_init_dense(cam, proj, min_disp=5, max_disp=md))
+    want = oracle_disparity_init(cam, proj, min_disp=5, max_disp=md)
+    np.testing.assert_array_equal(got, want)
+    assert got.any()
 
 
 def test_disparity_init_requires_two_candidates():

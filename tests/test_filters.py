@@ -6,10 +6,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from xmaps_tpu.io.evt_decoder import EVENT_DTYPE
-from xmaps_tpu.io.filters import ActivityNoiseFilter, polarity_filter
-from xmaps_tpu.ops.event_batch import EventBatch
-from xmaps_tpu.ops.filters import apply_frame_filter
+from xmaps.io.evt_decoder import EVENT_DTYPE
+from xmaps.io.filters import ActivityNoiseFilter, polarity_filter
+from xmaps.ops.event_batch import EventBatch
+from xmaps.ops.filters import apply_frame_filter
 
 W, H = 64, 48
 RECT_W = 176
@@ -240,7 +240,7 @@ def test_activity_filter_numpy_matches_sequential_oracle():
 
 
 def test_activity_filter_native_matches_numpy():
-    from xmaps_tpu.io.evt_decoder import _load_native
+    from xmaps.io.evt_decoder import _load_native
 
     if _load_native() is None:
         pytest.skip("native filter unavailable")

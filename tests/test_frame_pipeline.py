@@ -3,14 +3,13 @@
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
 
-from xmaps_tpu.calib.maps import CamProjMaps
-from xmaps_tpu.config import PipelineConfig
-from xmaps_tpu.ops.event_batch import EventBatch
-from xmaps_tpu.ops.frame_pipeline import DeviceTables, depth_frame, make_depth_frame_fn
-from xmaps_tpu.ops.xmap import build_x_map_numpy
-from xmaps_tpu.utils.synthetic import make_synthetic_calibration, simulate_plane_events
+from xmaps.calib.maps import CamProjMaps
+from xmaps.config import PipelineConfig
+from xmaps.ops.event_batch import EventBatch
+from xmaps.ops.frame_pipeline import DeviceTables, depth_frame, make_depth_frame_fn
+from xmaps.ops.xmap import build_x_map_numpy
+from xmaps.utils.synthetic import make_synthetic_calibration, simulate_plane_events
 
 import oracle
 
@@ -33,6 +32,7 @@ def rig():
         projector_height=calib.projector_height,
         rect_width=calib.rect_image_width,
         rect_height=calib.rect_image_height,
+        p03=float(maps.P2[0, 3]),
         event_capacity=16384,
         z_near=0.2,
         z_far=1.2,
@@ -100,27 +100,30 @@ def test_recovered_depth_physical(rig):
         assert abs(med - z_true) < 0.05, f"median depth {med} vs {z_true}"
 
 
-def test_full_frame_with_pallas_tail_matches_xla(rig):
-    """The fused Pallas tail path must be bit-exact with the XLA tail end
-    to end (interpret mode on CPU)."""
-    from xmaps_tpu.ops.pallas_tail import build_tail_plan
+def _cropped(cfg, maps, calib):
+    from xmaps.ops.image_tail import tail_crop_window
 
-    calib, maps, x_map, cfg, tables = rig
-    plan = build_tail_plan(
-        maps.disp_proj_mapx_i16,
-        maps.disp_proj_mapy_i16,
-        calib.rect_image_height,
-        calib.rect_image_width,
-        p03=float(maps.P2[0, 3]),
-        z_near=cfg.z_near,
-        z_far=cfg.z_far,
+    return cfg.replace(
+        tail_crop=tail_crop_window(
+            maps.disp_proj_mapx_i16,
+            maps.disp_proj_mapy_i16,
+            calib.rect_image_height,
+            calib.rect_image_width,
+        )
     )
+
+
+def test_full_frame_with_pallas_tail_matches_xla(rig):
+    """The tail over the crop window (scatter, dilate and remap on the
+    window the remap samples) must be bit-exact with the full-frame tail
+    end to end."""
+    calib, maps, x_map, cfg, tables = rig
     events = simulate_plane_events(calib, depth_m=0.55, jitter_us=3.0)
     batch = EventBatch.from_structured(events, cfg.event_capacity)
     ref = depth_frame(batch, tables, cfg)
-    out = depth_frame(batch, tables, cfg, tail_plan=plan, pallas_interpret=True)
+    out = depth_frame(batch, tables, _cropped(cfg, maps, calib))
     np.testing.assert_array_equal(np.asarray(out.disp_map), np.asarray(ref.disp_map))
-    np.testing.assert_allclose(np.asarray(out.depth), np.asarray(ref.depth), rtol=1e-6)
+    np.testing.assert_array_equal(np.asarray(out.depth), np.asarray(ref.depth))
     np.testing.assert_array_equal(np.asarray(out.frame_bgr), np.asarray(ref.frame_bgr))
 
 
@@ -138,25 +141,14 @@ def test_jitted_fn_stable_across_frames(rig):
 
 
 def test_camera_view_with_pallas_colorize_matches_xla(rig):
-    """The fused camera-view tail (pallas_colorize, interpret mode) must
-    be bit-exact with the XLA camera path end to end."""
-    from xmaps_tpu.ops.pallas_tail import build_cam_tail_plan
-
+    """The camera view ignores the projector tail's crop window: bit-exact
+    with the uncropped camera path."""
     calib, maps, x_map, cfg, tables = rig
     cfg_cam = cfg.replace(camera_perspective=True)
-    plan = build_cam_tail_plan(
-        calib.camera_height,
-        calib.camera_width,
-        p03=float(maps.P2[0, 3]),
-        z_near=cfg.z_near,
-        z_far=cfg.z_far,
-    )
     events = simulate_plane_events(calib, depth_m=0.55, jitter_us=3.0)
     batch = EventBatch.from_structured(events, cfg.event_capacity)
     ref = depth_frame(batch, tables, cfg_cam)
-    out = depth_frame(
-        batch, tables, cfg_cam, tail_plan=plan, pallas_interpret=True
-    )
+    out = depth_frame(batch, tables, _cropped(cfg_cam, maps, calib))
     np.testing.assert_array_equal(
         np.asarray(out.disp_map), np.asarray(ref.disp_map)
     )
@@ -171,12 +163,11 @@ def test_camera_view_with_pallas_colorize_matches_xla(rig):
 def test_process_frames_group_matches_per_frame():
     """The group-dispatch API (multi-camera / offline batch) must match
     process_frame element-wise, across both staging modes."""
-    from xmaps_tpu.models.depth_pipeline import XMapsDepthEngine
+    from xmaps.models.depth_pipeline import XMapsDepthEngine
 
     calib = make_synthetic_calibration()
     engine = XMapsDepthEngine.from_calibration(
         calib, event_capacity=2048, z_near=0.2, z_far=1.2,
-        use_pallas_tail=False, use_pallas_events=False,
     )
     rng = np.random.default_rng(5)
     frames = [
@@ -205,32 +196,16 @@ def test_process_frames_group_matches_per_frame():
 
 def test_display_only_matches_full(rig):
     """display_only must produce the identical colorized frame and inlier
-    count with depth/disp_map absent, across both views and both tail
-    implementations."""
+    count with depth/disp_map absent, across both views, with and without
+    the crop window."""
     calib, maps, x_map, cfg, tables = rig
-    from xmaps_tpu.ops.pallas_tail import build_cam_tail_plan, build_tail_plan
-
     events = simulate_plane_events(calib, depth_m=0.6, jitter_us=2.0)
     batch = EventBatch.from_structured(events, cfg.event_capacity)
-    proj_plan = build_tail_plan(
-        maps.disp_proj_mapx_i16, maps.disp_proj_mapy_i16,
-        calib.rect_image_height, calib.rect_image_width,
-        p03=float(maps.P2[0, 3]), z_near=cfg.z_near, z_far=cfg.z_far,
-    )
-    cam_plan = build_cam_tail_plan(
-        calib.camera_height, calib.camera_width,
-        p03=float(maps.P2[0, 3]), z_near=cfg.z_near, z_far=cfg.z_far,
-    )
-    for cam_view, plan in ((False, proj_plan), (True, cam_plan)):
-        c = cfg.replace(camera_perspective=cam_view)
-        for tail in (None, plan):
-            full = depth_frame(
-                batch, tables, c, tail_plan=tail, pallas_interpret=True
-            )
-            slim = depth_frame(
-                batch, tables, c, tail_plan=tail, pallas_interpret=True,
-                display_only=True,
-            )
+    for cam_view in (False, True):
+        for c in (cfg, _cropped(cfg, maps, calib)):
+            c = c.replace(camera_perspective=cam_view)
+            full = depth_frame(batch, tables, c)
+            slim = depth_frame(batch, tables, c, display_only=True)
             assert slim.depth is None and slim.disp_map is None
             np.testing.assert_array_equal(
                 np.asarray(slim.frame_bgr), np.asarray(full.frame_bgr)
@@ -241,32 +216,16 @@ def test_display_only_matches_full(rig):
 def test_display_packed_matches_planes(rig):
     """display_packed must emit one (H, W) u32 packed-BGR plane whose
     host-side view equals the 3-channel display frame byte-for-byte,
-    across both views and both tail implementations (Pallas interpret +
-    XLA fallback)."""
+    across both views, with and without the crop window."""
     calib, maps, x_map, cfg, tables = rig
-    from xmaps_tpu.ops.pallas_tail import build_cam_tail_plan, build_tail_plan
-
     events = simulate_plane_events(calib, depth_m=0.6, jitter_us=2.0)
     batch = EventBatch.from_structured(events, cfg.event_capacity)
-    proj_plan = build_tail_plan(
-        maps.disp_proj_mapx_i16, maps.disp_proj_mapy_i16,
-        calib.rect_image_height, calib.rect_image_width,
-        p03=float(maps.P2[0, 3]), z_near=cfg.z_near, z_far=cfg.z_far,
-    )
-    cam_plan = build_cam_tail_plan(
-        calib.camera_height, calib.camera_width,
-        p03=float(maps.P2[0, 3]), z_near=cfg.z_near, z_far=cfg.z_far,
-    )
-    for cam_view, plan in ((False, proj_plan), (True, cam_plan)):
-        c = cfg.replace(camera_perspective=cam_view)
-        for tail in (None, plan):
-            ref = depth_frame(
-                batch, tables, c, tail_plan=tail, pallas_interpret=True,
-                display_only=True,
-            )
+    for cam_view in (False, True):
+        for c in (cfg, _cropped(cfg, maps, calib)):
+            c = c.replace(camera_perspective=cam_view)
+            ref = depth_frame(batch, tables, c, display_only=True)
             packed = depth_frame(
-                batch, tables, c, tail_plan=tail, pallas_interpret=True,
-                display_only=True, display_packed=True,
+                batch, tables, c, display_only=True, display_packed=True
             )
             arr = np.asarray(packed.frame_bgr)
             assert arr.dtype == np.uint32 and arr.ndim == 2

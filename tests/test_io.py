@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from xmaps_tpu.io.evt_decoder import (
+from xmaps.io.evt_decoder import (
     EVENT_DTYPE,
     EvtDecoder,
     decode_evt2_numpy,
@@ -14,8 +14,8 @@ from xmaps_tpu.io.evt_decoder import (
     parse_raw_header,
     _load_native,
 )
-from xmaps_tpu.io.evt_encode import encode_dat, encode_evt2, encode_evt3
-from xmaps_tpu.io.event_iterator import FileEventsIterator
+from xmaps.io.evt_encode import encode_dat, encode_evt2, encode_evt3
+from xmaps.io.event_iterator import FileEventsIterator
 
 
 def _random_events(rng, n=5000, w=640, h=480, t_span=100_000):

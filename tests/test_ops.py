@@ -5,20 +5,21 @@ import pytest
 
 import jax.numpy as jnp
 
-from xmaps_tpu.calib.maps import CamProjMaps
-from xmaps_tpu.config import PipelineConfig, X_OFFSET
-from xmaps_tpu.ops.disparity import compute_event_disparity
-from xmaps_tpu.ops.event_batch import EventBatch
-from xmaps_tpu.ops.image_tail import (
-    clip_normalize_u8,
-    colorize_turbo,
+from xmaps.calib.maps import CamProjMaps
+from xmaps.config import X_OFFSET
+from xmaps.ops.disparity import compute_event_disparity
+from xmaps.ops.event_batch import EventBatch
+from xmaps.ops.image_tail import (
+    depth_and_frame,
     dilate_max,
-    disparity_to_depth,
+    disparity_luts,
     remap_nearest_i16,
+    turbo_packed_lut,
+    unpack_bgr,
 )
-from xmaps_tpu.ops.scatter import scatter_disp_last_wins
-from xmaps_tpu.ops.xmap import build_x_map, build_x_map_numpy
-from xmaps_tpu.utils.synthetic import make_synthetic_calibration, simulate_plane_events
+from xmaps.ops.scatter import scatter_disp_last_wins
+from xmaps.ops.xmap import build_x_map, build_x_map_numpy
+from xmaps.utils.synthetic import make_synthetic_calibration, simulate_plane_events
 
 import oracle
 
@@ -134,7 +135,7 @@ def test_scatter_last_write_wins(rng):
 def test_scatter_sorted_method_bit_identical(rng):
     """The sort-dedup unique-set strategy must equal scatter-max exactly,
     including priorities, padding, and out-of-bounds routing."""
-    from xmaps_tpu.ops.scatter import scatter_disp_packed
+    from xmaps.ops.scatter import scatter_disp_packed
 
     H, W = 37, 53
     n = 4096
@@ -192,22 +193,36 @@ def test_remap_matches_oracle(rng):
 
 
 def test_depth_and_normalize_match_oracle(rng):
-    disp = (rng.random((30, 40)) * 400).astype(np.float32)
-    disp[disp < 150] = 0
-    p03 = 191.87
-    depth_o = oracle.oracle_disp_to_depth(disp, p03)
-    depth_d = np.asarray(disparity_to_depth(jnp.asarray(disp), jnp.float32(p03)))
-    np.testing.assert_allclose(depth_d, depth_o, rtol=1e-6)
+    """The per-disparity tables reproduce the reference's float32 depth,
+    u8 normalisation and colour exactly, for every integer disparity the
+    scatter can produce, looked up on the device."""
+    from xmaps.ops.scatter import PACK
+    from xmaps.utils.colormap import TURBO_BGR_U8
 
+    p03 = 191.87
+    luts = disparity_luts(p03, 0.4, 1.5)
+    disp = np.arange(PACK, dtype=np.float32)
+    depth_o = oracle.oracle_disp_to_depth(disp, p03)
     u8_o = oracle.oracle_clip_normalize_u8(depth_o, 0.4, 1.5)
-    u8_d = np.asarray(clip_normalize_u8(jnp.asarray(depth_o), 0.4, 1.5))
-    np.testing.assert_array_equal(u8_d, u8_o)
+    np.testing.assert_array_equal(luts.depth, depth_o)
+    np.testing.assert_array_equal(luts.u8, u8_o)
+    assert u8_o.max() == 255 and len(np.unique(u8_o)) > 200  # full range
+
+    img = rng.integers(0, PACK, (30, 40)).astype(np.float32)
+    img[img < 150] = 0
+    depth_d, frame_d = depth_and_frame(jnp.asarray(img), luts)
+    ii = img.astype(np.int64)
+    np.testing.assert_array_equal(np.asarray(depth_d), depth_o[ii])
+    np.testing.assert_array_equal(
+        np.asarray(frame_d),
+        oracle.oracle_colorize(u8_o[ii], np.asarray(TURBO_BGR_U8)),
+    )
 
 
 def test_colorize_matches_cv2(rng):
     cv2 = pytest.importorskip("cv2")
     u8 = rng.integers(0, 256, (20, 30)).astype(np.uint8)
-    ours = np.asarray(colorize_turbo(jnp.asarray(u8)))
+    ours = np.asarray(unpack_bgr(jnp.asarray(turbo_packed_lut()[u8])))
     ref = cv2.applyColorMap(u8, cv2.COLORMAP_TURBO)
     ref[u8 == 0] = 255
     np.testing.assert_array_equal(ours, ref)

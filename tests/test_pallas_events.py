@@ -1,79 +1,132 @@
-"""Event-gather Pallas kernel vs the XLA reference path (interpret mode on
-CPU; the same comparison runs compiled on TPU in bench/verify runs)."""
+"""The per-event stage (XLA gathers through the packed camera LUT and the
+X-map) and host target-sorted staging, against the NumPy oracle and the
+arrival-order program."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xmaps_tpu.models.depth_pipeline import XMapsDepthEngine
-from xmaps_tpu.ops.disparity import (
-    compute_event_disparity,
-    compute_event_disparity_pallas,
-)
-from xmaps_tpu.ops.event_batch import EventBatch
-from xmaps_tpu.ops.frame_pipeline import depth_frame
-from xmaps_tpu.ops.pallas_events import (
-    build_event_gather_hbm_plan,
-    build_event_gather_plan,
-)
-from xmaps_tpu.utils.synthetic import (
+import oracle
+from xmaps.models.depth_pipeline import XMapsDepthEngine
+from xmaps.ops.disparity import compute_event_disparity, rectify_events_packed
+from xmaps.ops.event_batch import EventBatch
+from xmaps.ops.frame_pipeline import depth_frame
+from xmaps.utils.synthetic import (
     make_synthetic_calibration,
     simulate_plane_events,
 )
 
 CAPACITY = 2048
 
+# (cam_w, cam_h, proj_w, proj_h, rect (H, W) override): a demo-like rig
+# (2.75x camera rectification) and a tall ESL-like one (rect = 3x the
+# projector, so the X-map has 3 * proj_h rows -- 5760 at the real rig)
+RIGS = {
+    "demo_like": (128, 96, 96, 128, None),
+    "esl_like": (128, 96, 72, 128, (3 * 128, 3 * 72)),
+}
+
+
+def _rig(name):
+    import dataclasses
+
+    cw, ch, pw, ph, rect = RIGS[name]
+    calib = make_synthetic_calibration(
+        camera_width=cw, camera_height=ch, projector_width=pw, projector_height=ph
+    )
+    if rect is not None:
+        calib = dataclasses.replace(
+            calib, rect_image_height=rect[0], rect_image_width=rect[1]
+        )
+    engine = XMapsDepthEngine.from_calibration(
+        calib, event_capacity=CAPACITY, z_near=0.2, z_far=1.2,
+    )
+    return calib, engine
+
 
 @pytest.fixture(scope="module")
 def rig():
-    calib = make_synthetic_calibration(
-        camera_width=128, camera_height=96, projector_width=96, projector_height=128
-    )
-    engine = XMapsDepthEngine.from_calibration(
-        calib,
-        event_capacity=CAPACITY,
-        z_near=0.2,
-        z_far=1.2,
-        use_pallas_tail=False,
-        use_pallas_events=False,
-    )
+    calib, engine = _rig("demo_like")
     events = simulate_plane_events(
         calib, depth_m=0.6, subsample=0.4, jitter_us=2.0,
         rng=np.random.default_rng(3),
     )
-    batch = engine.make_batch(events)
-    plan = build_event_gather_plan(engine.tables.cam_map_packed, engine.x_map_np)
-    return engine, batch, plan
+    return calib, engine, events
+
+
+@pytest.mark.parametrize("name", sorted(RIGS))
+def test_xla_event_stage_matches_oracle(name):
+    """Rectify + X-map lookup + disparity + inlier mask, per event, equal
+    the reference transcription (tests/oracle.py)."""
+    calib, engine = _rig(name)
+    assert engine.x_map_np.shape[0] == calib.rect_image_height
+    events = simulate_plane_events(
+        calib, depth_m=0.55, subsample=0.2, jitter_us=2.0,
+        rng=np.random.default_rng(31),
+    )[: CAPACITY - 48]
+    n = len(events)
+    t = engine.tables
+    batch = EventBatch.from_structured(events, CAPACITY)
+    xr, yr = rectify_events_packed(batch.x, batch.y, t.cam_map_packed)
+    res = compute_event_disparity(
+        batch, t.cam_mapx_i16, t.cam_mapy_i16, t.x_map,
+        t_px_scale=engine.cfg.t_px_scale, rect_coords=(xr, yr),
+    )
+    oxr, oyr = oracle.oracle_rectify_i16(
+        events, engine.maps.disp_cam_mapx_i16, engine.maps.disp_cam_mapy_i16
+    )
+    odisp, oinl, _ = oracle.oracle_disparity(
+        oxr, oyr, events["t"], engine.x_map_np, engine.cfg.t_px_scale
+    )
+    np.testing.assert_array_equal(np.asarray(res.x_rect)[:n], oxr)
+    np.testing.assert_array_equal(np.asarray(res.y_rect)[:n], oyr)
+    np.testing.assert_array_equal(np.asarray(res.inlier)[:n], oinl)
+    np.testing.assert_array_equal(np.asarray(res.disp)[:n][oinl], odisp)
+    assert not np.asarray(res.inlier)[n:].any()  # padding lanes
+    assert oinl.mean() > 0.5
 
 
 def test_disparity_stage_matches_xla(rig):
-    engine, batch, plan = rig
+    """The packed-LUT rectify (one gather) equals the two-table rectify,
+    and the disparity stage is lane-order independent: a host-sorted
+    batch gives the same per-event values as the arrival-order batch
+    once undone through the carried priority."""
+    calib, engine, events = rig
     t = engine.tables
+    batch = engine.make_batch(events)
     ref = compute_event_disparity(
         batch, t.cam_mapx_i16, t.cam_mapy_i16, t.x_map,
         t_px_scale=engine.cfg.t_px_scale,
     )
-    res, (xs, ys), prio = compute_event_disparity_pallas(
-        batch, plan, t_px_scale=engine.cfg.t_px_scale, interpret=True
+    xr, yr = rectify_events_packed(batch.x, batch.y, t.cam_map_packed)
+    np.testing.assert_array_equal(np.asarray(xr), np.asarray(ref.x_rect))
+    np.testing.assert_array_equal(np.asarray(yr), np.asarray(ref.y_rect))
+
+    sb, prio = engine.make_sorted_batch(events)
+    res = compute_event_disparity(
+        sb, t.cam_mapx_i16, t.cam_mapy_i16, t.x_map,
+        t_px_scale=engine.cfg.t_px_scale,
     )
-    # same per-event values after undoing the sort via the carried priority
-    order = np.asarray(prio)
-    np.testing.assert_array_equal(np.asarray(res.x_rect), np.asarray(ref.x_rect)[order])
-    np.testing.assert_array_equal(np.asarray(res.y_rect), np.asarray(ref.y_rect)[order])
-    np.testing.assert_array_equal(np.asarray(res.disp), np.asarray(ref.disp)[order])
-    np.testing.assert_array_equal(np.asarray(res.inlier), np.asarray(ref.inlier)[order])
-    np.testing.assert_array_equal(np.asarray(xs), np.asarray(batch.x)[order])
-    np.testing.assert_array_equal(np.asarray(ys), np.asarray(batch.y)[order])
+    n = len(events)
+    order = np.asarray(prio)[:n]
+    for f in ("x_rect", "y_rect", "disp", "inlier"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(res, f))[:n],
+            np.asarray(getattr(ref, f))[order],
+            err_msg=f,
+        )
 
 
 @pytest.mark.parametrize("camera_perspective", [False, True])
 def test_full_frame_bit_exact(rig, camera_perspective):
-    engine, batch, plan = rig
+    """Host target-sorted staging + runs scatter equals the arrival-order
+    frame (scatter-max) in both views."""
+    calib, engine, events = rig
     cfg = engine.cfg.replace(camera_perspective=camera_perspective)
-    ref = depth_frame(batch, engine.tables, cfg)
+    ref = depth_frame(engine.make_batch(events), engine.tables, cfg)
+    b, prio = engine.make_sorted_batch(events)
     got = depth_frame(
-        batch, engine.tables, cfg, event_plan=plan, pallas_interpret=True
+        b, engine.tables, cfg, presort_priority=prio, presort_runs=True
     )
     np.testing.assert_array_equal(np.asarray(got.disp_map), np.asarray(ref.disp_map))
     np.testing.assert_array_equal(np.asarray(got.depth), np.asarray(ref.depth))
@@ -84,16 +137,12 @@ def test_full_frame_bit_exact(rig, camera_perspective):
 
 
 def test_presorted_staging_bit_exact(rig):
-    """Host y-pre-sorted staging (from_structured_sorted + presort_priority)
-    must produce the same frame as arrival-order staging with the device
-    sort."""
-    engine, batch, plan = rig
+    """Host y-sorted staging (from_structured_sorted + presort_priority,
+    scatter-max over the carried priorities) must produce the same frame
+    as arrival-order staging."""
+    calib, engine, _ = rig
     events = simulate_plane_events(
-        make_synthetic_calibration(
-            camera_width=128, camera_height=96,
-            projector_width=96, projector_height=128,
-        ),
-        depth_m=0.7, subsample=0.4, jitter_us=2.0,
+        calib, depth_m=0.7, subsample=0.4, jitter_us=2.0,
         rng=np.random.default_rng(11),
     )
     b0 = EventBatch.from_structured(events, CAPACITY)
@@ -104,116 +153,19 @@ def test_presorted_staging_bit_exact(rig):
                                   np.asarray(b0.x)[order])
     assert (np.diff(np.asarray(bs.y)[: len(events)]) >= 0).all()
 
-    ref = depth_frame(b0, engine.tables, engine.cfg,
-                      event_plan=plan, pallas_interpret=True)
-    got = depth_frame(bs, engine.tables, engine.cfg,
-                      event_plan=plan, pallas_interpret=True,
-                      presort_priority=prio)
+    ref = depth_frame(b0, engine.tables, engine.cfg)
+    got = depth_frame(bs, engine.tables, engine.cfg, presort_priority=prio)
     np.testing.assert_array_equal(np.asarray(got.disp_map), np.asarray(ref.disp_map))
     np.testing.assert_array_equal(np.asarray(got.depth), np.asarray(ref.depth))
     np.testing.assert_array_equal(np.asarray(got.frame_bgr), np.asarray(ref.frame_bgr))
     assert int(got.num_inliers) == int(ref.num_inliers)
 
 
-@pytest.mark.parametrize("band_rows", [16, 64, 256])
-def test_hbm_disparity_stage_matches_xla(rig, band_rows):
-    """The HBM-banded variant (X-map streamed per block) must match the
-    XLA path bit-for-bit at every band size -- band_rows=16 forces the
-    serial extra-chunk path, 256 the single-prefetched-chunk fast path."""
-    engine, batch, plan = rig
-    hplan = build_event_gather_hbm_plan(
-        engine.tables.cam_map_packed, engine.x_map_np, band_rows=band_rows
-    )
-    t = engine.tables
-    ref = compute_event_disparity(
-        batch, t.cam_mapx_i16, t.cam_mapy_i16, t.x_map,
-        t_px_scale=engine.cfg.t_px_scale,
-    )
-    res, (xs, ys), prio = compute_event_disparity_pallas(
-        batch, hplan, t_px_scale=engine.cfg.t_px_scale, interpret=True
-    )
-    order = np.asarray(prio)
-    np.testing.assert_array_equal(np.asarray(res.x_rect), np.asarray(ref.x_rect)[order])
-    np.testing.assert_array_equal(np.asarray(res.y_rect), np.asarray(ref.y_rect)[order])
-    np.testing.assert_array_equal(np.asarray(res.disp), np.asarray(ref.disp)[order])
-    np.testing.assert_array_equal(np.asarray(res.inlier), np.asarray(ref.inlier)[order])
-
-
-@pytest.mark.parametrize("camera_perspective", [False, True])
-def test_hbm_full_frame_bit_exact(rig, camera_perspective):
-    engine, batch, plan = rig
-    hplan = build_event_gather_hbm_plan(
-        engine.tables.cam_map_packed, engine.x_map_np, band_rows=64
-    )
-    cfg = engine.cfg.replace(camera_perspective=camera_perspective)
-    ref = depth_frame(batch, engine.tables, cfg)
-    got = depth_frame(
-        batch, engine.tables, cfg, event_plan=hplan, pallas_interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(got.disp_map), np.asarray(ref.disp_map))
-    np.testing.assert_array_equal(np.asarray(got.depth), np.asarray(ref.depth))
-    np.testing.assert_array_equal(
-        np.asarray(got.frame_bgr), np.asarray(ref.frame_bgr)
-    )
-    assert int(got.num_inliers) == int(ref.num_inliers)
-
-
-def test_hbm_host_sorted_bands_bit_exact(rig):
-    """Rectified-row host sort + exact per-block band bounds
-    (engine.make_sorted_batch for HBM plans) must reproduce the XLA path
-    bit-for-bit, padding lanes included."""
-    engine, batch, plan = rig
-    old = engine.event_plan
-    try:
-        engine.event_plan = build_event_gather_hbm_plan(
-            engine.tables.cam_map_packed, engine.x_map_np, band_rows=32
-        )
-        ev = simulate_plane_events(
-            make_synthetic_calibration(
-                camera_width=128, camera_height=96,
-                projector_width=96, projector_height=128,
-            ),
-            depth_m=0.55, subsample=0.4, jitter_us=2.0,
-            rng=np.random.default_rng(17),
-        )
-        b, prio, bands = engine.make_sorted_batch(ev)
-        assert bands is not None and bands.shape[1] == 2
-        # the sort key is the clipped rectified row
-        yr = np.asarray(
-            engine.maps.disp_cam_mapy_i16[ev["y"], ev["x"]], np.int32
-        )
-        yr = np.clip(yr, 0, engine.x_map_np.shape[0] - 1)
-        order = np.asarray(prio)[: len(ev)]
-        assert (np.diff(yr[order]) >= 0).all()
-
-        ref = depth_frame(
-            EventBatch.from_structured(ev, CAPACITY),
-            engine.tables,
-            engine.cfg,
-        )
-        got = depth_frame(
-            b, engine.tables, engine.cfg,
-            event_plan=engine.event_plan, pallas_interpret=True,
-            presort_priority=prio, presort_bands=bands,
-        )
-        np.testing.assert_array_equal(
-            np.asarray(got.disp_map), np.asarray(ref.disp_map)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(got.depth), np.asarray(ref.depth)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(got.frame_bgr), np.asarray(ref.frame_bgr)
-        )
-        assert int(got.num_inliers) == int(ref.num_inliers)
-    finally:
-        engine.event_plan = old
-
-
 def test_float_t_falls_back(rig):
-    """The eval path (float normalized timestamps) must silently use the
-    XLA path even when an event plan is passed."""
-    engine, batch, plan = rig
+    """The eval path (float normalized timestamps) runs the float time
+    binning; a host priority is refused for it."""
+    calib, engine, events = rig
+    batch = engine.make_batch(events)
     fbatch = EventBatch(
         x=batch.x,
         y=batch.y,
@@ -222,6 +174,10 @@ def test_float_t_falls_back(rig):
         valid=batch.valid,
         count=batch.count,
     )
-    ref = depth_frame(fbatch, engine.tables, engine.cfg)
-    got = depth_frame(fbatch, engine.tables, engine.cfg, event_plan=plan)
-    np.testing.assert_array_equal(np.asarray(got.depth), np.asarray(ref.depth))
+    got = depth_frame(fbatch, engine.tables, engine.cfg)
+    assert int(got.num_inliers) > 0
+    with pytest.raises(ValueError, match="presort_priority"):
+        depth_frame(
+            fbatch, engine.tables, engine.cfg,
+            presort_priority=jnp.arange(CAPACITY, dtype=jnp.int32),
+        )

@@ -1,186 +1,116 @@
-"""Fused Pallas tail kernel vs the XLA/oracle tail (interpret mode on CPU)."""
+"""The projector-view tail over its crop window vs the full-frame tail."""
 
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
-from xmaps_tpu.calib.maps import CamProjMaps
-from xmaps_tpu.ops.image_tail import (
-    clip_normalize_u8,
-    colorize_turbo,
+from xmaps.calib.maps import CamProjMaps
+from xmaps.ops.image_tail import (
+    depth_and_frame,
     dilate_max,
-    disparity_to_depth,
+    disparity_luts,
     remap_nearest_i16,
+    tail_crop_window,
+    turbo_packed_lut,
+    unpack_bgr,
 )
-from xmaps_tpu.ops.pallas_tail import build_tail_plan, pallas_tail
-from xmaps_tpu.utils.synthetic import make_synthetic_calibration
+from xmaps.ops.scatter import PACK, unpack_disp
+from xmaps.utils.synthetic import make_synthetic_calibration
 
 
 @pytest.fixture(scope="module")
 def rig():
     calib = make_synthetic_calibration()
     maps = CamProjMaps(calib)
-    plan = build_tail_plan(
+    crop = tail_crop_window(
         maps.disp_proj_mapx_i16,
         maps.disp_proj_mapy_i16,
         calib.rect_image_height,
         calib.rect_image_width,
-        p03=float(maps.P2[0, 3]),
-        z_near=0.2,
-        z_far=1.2,
     )
-    return calib, maps, plan
+    return calib, maps, crop
 
 
-def _xla_tail(disp_rect, maps, z_near, z_far):
+def _luts(maps):
+    return disparity_luts(float(maps.P2[0, 3]), 0.2, 1.2)
+
+
+def _xla_tail(disp_rect, maps):
     dil = dilate_max(disp_rect, 7)
     rm = remap_nearest_i16(
         dil, jnp.asarray(maps.disp_proj_mapx_i16), jnp.asarray(maps.disp_proj_mapy_i16)
     )
-    depth = disparity_to_depth(rm, jnp.float32(maps.P2[0, 3]))
-    u8 = clip_normalize_u8(depth, z_near, z_far)
-    return colorize_turbo(u8), depth
+    return depth_and_frame(rm, _luts(maps))[1], rm
 
 
-def test_plan_shapes(rig):
-    calib, maps, plan = rig
-    assert plan.RB % 8 == 0 and plan.CB % 128 == 0
-    assert plan.GR * plan.TH >= calib.projector_height
-    assert plan.GC * plan.TW >= calib.projector_width
-    # all used rows must fall inside the band
-    used = plan.x_abs >= 0
-    Y = maps.disp_proj_mapy_i16.astype(np.int64)
-    Yc = np.clip(Y, 0, plan.H - 1)
+def _crop_tail(packed, maps, crop):
+    """Unpack, dilate and remap the crop window only (the frame
+    program's tail), then look depth and colour up."""
+    r0, c0, h, w = crop
+    dil = dilate_max(unpack_disp(jnp.asarray(packed[r0:r0 + h, c0:c0 + w])), 7)
+    rm = remap_nearest_i16(
+        dil, jnp.asarray(maps.disp_proj_mapx_i16),
+        jnp.asarray(maps.disp_proj_mapy_i16), origin=(r0, c0),
+    )
+    return depth_and_frame(rm, _luts(maps), packed=True)[1], rm
 
 
 def test_pallas_tail_matches_xla(rig, rng):
-    calib, maps, plan = rig
+    calib, maps, crop = rig
     H, W = calib.rect_image_height, calib.rect_image_width
-    # sparse disparity map like a scattered frame
-    disp = np.zeros((H, W), np.float32)
+    # sparse packed disparity map like a scattered frame (priority bits
+    # above the disparity field must be masked off by the kernel)
+    packed = np.zeros((H, W), np.uint32)
     n = 2000
     ys = rng.integers(0, H, n)
     xs = rng.integers(0, W, n)
-    disp[ys, xs] = rng.integers(1, 160, n).astype(np.float32)
+    disp = rng.integers(1, 160, n)
+    packed[ys, xs] = (rng.integers(1, 1000, n) * PACK + disp).astype(np.uint32)
+    dense = (packed % PACK).astype(np.float32)
 
-    frame_p, depth_p, disp_p = pallas_tail(jnp.asarray(disp), plan, interpret=True)
-    frame_x, depth_x = _xla_tail(jnp.asarray(disp), maps, 0.2, 1.2)
+    bgr, disp_p = _crop_tail(packed, maps, crop)
+    frame_x, disp_x = _xla_tail(jnp.asarray(dense), maps)
+    assert (np.asarray(disp_x) > 0).mean() > 0.05
 
-    np.testing.assert_allclose(
-        np.asarray(depth_p), np.asarray(depth_x), rtol=1e-6
+    np.testing.assert_array_equal(np.asarray(disp_p), np.asarray(disp_x))
+    np.testing.assert_array_equal(
+        np.asarray(unpack_bgr(bgr)), np.asarray(frame_x)
     )
-    np.testing.assert_array_equal(np.asarray(frame_p), np.asarray(frame_x))
 
 
 def test_pallas_tail_empty(rig):
-    calib, maps, plan = rig
+    calib, maps, crop = rig
     H, W = calib.rect_image_height, calib.rect_image_width
-    disp = jnp.zeros((H, W), jnp.float32)
-    frame_p, depth_p, disp_p = pallas_tail(disp, plan, interpret=True)
-    assert (np.asarray(depth_p) == 0).all()
-    assert (np.asarray(frame_p) == 255).all()  # all undefined -> white
+    bgr, disp_p = _crop_tail(np.zeros((H, W), np.uint32), maps, crop)
+    assert (np.asarray(disp_p) == 0).all()
+    assert (np.asarray(unpack_bgr(bgr)) == 255).all()  # all undefined -> white
 
 
-def test_tail_plan_disk_cache_roundtrip(tmp_path):
-    """The engine's tail-plan disk cache must reproduce the built plan
-    exactly (every field, arrays bit-for-bit)."""
-    import dataclasses
-
-    from xmaps_tpu.models.depth_pipeline import XMapsDepthEngine
-    from xmaps_tpu.utils.synthetic import make_synthetic_calibration
-
+def test_tail_crop_window_demo_rig():
+    """At the demonstrator rig the tail sees 901x532 of the 1320x1760
+    rect frame; a map that samples nothing keeps the full frame."""
     calib = make_synthetic_calibration(
-        camera_width=96, camera_height=64,
-        projector_width=72, projector_height=96,
-    )
-    kw = dict(
-        event_capacity=1024, z_near=0.2, z_far=1.2,
-        use_pallas_tail=True, use_pallas_events=False,
-        use_device_xmap_build=False,
-        xmap_cache_dir=str(tmp_path),
-    )
-    e1 = XMapsDepthEngine.from_calibration(calib, **kw)
-    assert any(p.name.startswith("tailplan_") for p in tmp_path.iterdir())
-    e2 = XMapsDepthEngine.from_calibration(calib, **kw)  # cache hit
-    for f in dataclasses.fields(type(e1.tail_plan)):
-        a = getattr(e1.tail_plan, f.name)
-        b = getattr(e2.tail_plan, f.name)
-        if isinstance(a, np.ndarray):
-            np.testing.assert_array_equal(a, b, err_msg=f.name)
-        else:
-            assert a == b, f.name
-
-
-def test_tail_tile_ladder_adapts_to_output_height():
-    """The automatic tile height climbs for large outputs (per the
-    round-3 sweeps) but never burns >20% of the grid on padding rows."""
-    from xmaps_tpu.calib.maps import CamProjMaps
-    from xmaps_tpu.ops.pallas_tail import build_tail_plan
-    from xmaps_tpu.utils.synthetic import make_synthetic_calibration
-
-    calib = make_synthetic_calibration(
-        camera_width=320, camera_height=240,
-        projector_width=360, projector_height=640,
+        camera_width=640, camera_height=480,
+        projector_width=720, projector_height=1280,
     )
     maps = CamProjMaps(calib)
-    plan = build_tail_plan(
+    crop = tail_crop_window(
         maps.disp_proj_mapx_i16, maps.disp_proj_mapy_i16,
         calib.rect_image_height, calib.rect_image_width,
-        p03=float(maps.P2[0, 3]), z_near=0.2, z_far=1.2,
     )
-    # Hp=640: 960 would pad 50%; 640 divides exactly and fits the budget
-    assert plan.TH == 640 and plan.Hp_pad == 640
-    assert plan.GR * plan.TH <= calib.projector_height * 1.2
-
-
-def test_plan_stripe_window_invariants(rig):
-    """V2 plan invariants: every in-bounds output pixel's pre-biased
-    stripe value indexes inside the static QHS-group window, through the
-    slot (a/b) the column table actually selects for it."""
-    calib, maps, plan = rig
-    nq = plan.TH // 8
-    X = plan.x_abs
-    for ti in range(plan.GR):
-        for tj in range(plan.GC):
-            t = ti * plan.GC + tj
-            for q in range(nq):
-                enc = int(plan.qenc[t * nq + q])
-                ph, base = enc % 8, enc - enc % 8
-                assert ph in (0, 1)
-                assert base % 8 == 0 and base + plan.QHS * 8 <= plan.RB
-                out_rows = slice(ti * plan.TH + q * 8, ti * plan.TH + (q + 1) * 8)
-                out_cols = slice(tj * plan.TW, (tj + 1) * plan.TW)
-                xe = X[out_rows, out_cols]
-                used = xe >= 0
-                if not used.any():
-                    continue
-                cols = (xe & ((1 << 20) - 1)) - int(plan.col0[t])
-                slot_b = (xe >> 20) & 1
-                st_rows = slice(t * plan.TH + q * 8, t * plan.TH + (q + 1) * 8)
-                for s in range(8):
-                    for l in range(plan.TW):
-                        if not used[s, l]:
-                            continue
-                        c = int(cols[s, l])
-                        assert 0 <= c < plan.CB
-                        packed = int(
-                            plan.yh.view(np.uint16)[st_rows, :][s, c]
-                        )
-                        hq = (packed >> 8) if slot_b[s, l] else (packed & 255)
-                        assert 0 <= hq < plan.QHS * 8, (t, q, s, l, hq)
+    assert crop == (95, 369, 901, 532)
+    none = np.full((4, 4), -1, np.int16)
+    assert tail_crop_window(none, none, 30, 40) == (0, 0, 30, 40)
 
 
 def test_packed_lut_matches_turbo():
     """The packed-BGR LUT must reproduce TURBO exactly, with entry 0
     pre-whitened (the u8==0 white-mask fold)."""
-    from xmaps_tpu.ops.pallas_tail import _make_lut
-    from xmaps_tpu.utils.colormap import TURBO_BGR_U8
+    from xmaps.utils.colormap import TURBO_BGR_U8
 
-    lut = _make_lut()
-    assert lut.shape == (8, 256)
-    flat = np.concatenate([lut[0, :128], lut[0, 128:]])
+    flat = turbo_packed_lut().astype(np.int64)
+    assert flat.shape == (256,)
     b = flat & 255
     g = (flat >> 8) & 255
     r = flat >> 16
@@ -189,5 +119,3 @@ def test_packed_lut_matches_turbo():
     np.testing.assert_array_equal(b, exp[:, 0])
     np.testing.assert_array_equal(g, exp[:, 1])
     np.testing.assert_array_equal(r, exp[:, 2])
-    # rows are broadcast copies
-    np.testing.assert_array_equal(lut, np.broadcast_to(lut[0], (8, 256)))

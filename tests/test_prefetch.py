@@ -4,9 +4,9 @@ staged frame program."""
 import numpy as np
 import pytest
 
-from xmaps_tpu.io.evt_decoder import EVENT_DTYPE
-from xmaps_tpu.io.prefetch import HostStagingPool, unpack_staged
-from xmaps_tpu.ops.event_batch import EventBatch
+from xmaps.io.evt_decoder import EVENT_DTYPE
+from xmaps.io.prefetch import HostStagingPool, unpack_staged
+from xmaps.ops.event_batch import EventBatch
 
 def _unpack_bgrx(frame):
     """Host view of the packed u32 display plane as (H, W, 3) u8."""
@@ -76,8 +76,8 @@ def test_host_time_binning_matches_device_exactly(rng):
     round-half-to-even bit for bit, including exact .5 ties."""
     import jax.numpy as jnp
 
-    from xmaps_tpu.io.prefetch import _scale_time_int_host
-    from xmaps_tpu.ops.disparity import _scale_time_int
+    from xmaps.io.prefetch import _scale_time_int_host
+    from xmaps.ops.disparity import _scale_time_int
 
     scale = 719
     # random frames + a constructed tie: rng divides 2*scale so some
@@ -102,9 +102,9 @@ def test_host_time_binning_matches_device_exactly(rng):
 def test_compact_stage_matches_two_word_path():
     """The 1-word compact staging must produce bit-identical frames to
     the 2-word staging and the EventBatch path (frame_filter none)."""
-    from xmaps_tpu.io.prefetch import CompactLayout
-    from xmaps_tpu.models.depth_pipeline import XMapsDepthEngine
-    from xmaps_tpu.utils.synthetic import (
+    from xmaps.io.prefetch import CompactLayout
+    from xmaps.models.depth_pipeline import XMapsDepthEngine
+    from xmaps.utils.synthetic import (
         make_synthetic_calibration,
         simulate_plane_events,
     )
@@ -135,8 +135,8 @@ def test_compact_stage_matches_two_word_path():
 
 
 def test_compact_layout_rejects_oversize_dims():
-    from xmaps_tpu.config import PipelineConfig
-    from xmaps_tpu.io.prefetch import CompactLayout
+    from xmaps.config import PipelineConfig
+    from xmaps.io.prefetch import CompactLayout
 
     cfg = PipelineConfig(
         camera_width=4096,
@@ -145,6 +145,7 @@ def test_compact_layout_rejects_oversize_dims():
         projector_height=4096,
         rect_width=64,
         rect_height=64,
+        p03=100.0,
         event_capacity=256,
         z_near=0.1,
         z_far=1.0,
@@ -155,8 +156,8 @@ def test_compact_layout_rejects_oversize_dims():
 def test_staged_frame_path_runs():
     """engine.process_staged on pool-staged frames must match the
     EventBatch path bit for bit."""
-    from xmaps_tpu.models.depth_pipeline import XMapsDepthEngine
-    from xmaps_tpu.utils.synthetic import (
+    from xmaps.models.depth_pipeline import XMapsDepthEngine
+    from xmaps.utils.synthetic import (
         make_synthetic_calibration,
         simulate_plane_events,
     )
@@ -192,7 +193,7 @@ def test_ring_assembly_bit_identical(rng):
     including packet splitting, mid-packet frame boundaries and padding."""
     import jax
 
-    from xmaps_tpu.io.prefetch import (
+    from xmaps.io.prefetch import (
         RING_SLOTS_PER_FRAME as K,
         PacketRing,
         assemble_ring_frame,
@@ -233,7 +234,7 @@ def test_ring_assembly_compact_bit_identical(rng):
     reconstructed as the 1 the upstream polarity filter guarantees."""
     import jax
 
-    from xmaps_tpu.io.prefetch import (
+    from xmaps.io.prefetch import (
         PacketRing,
         RingLayout,
         assemble_ring_frame_compact,
@@ -274,7 +275,7 @@ def test_ring_compact_splits_long_spans(rng):
     packet's t_rel fits the layout's field -- and still assemble exactly."""
     import jax
 
-    from xmaps_tpu.io.prefetch import (
+    from xmaps.io.prefetch import (
         PacketRing,
         RingLayout,
         assemble_ring_frame_compact,
@@ -314,7 +315,7 @@ def test_ring_assembly_frame_larger_than_capacity(rng):
     output offset into the scratch tail)."""
     import jax
 
-    from xmaps_tpu.io.prefetch import PacketRing, assemble_ring_frame
+    from xmaps.io.prefetch import PacketRing, assemble_ring_frame
 
     ev = _ring_events(rng, 3000)
     ring = PacketRing(packet_capacity=700, n_slots=16)
@@ -337,7 +338,7 @@ def test_ring_assembly_frame_larger_than_capacity(rng):
 
 
 def test_ring_overrun_and_retire(rng):
-    from xmaps_tpu.io.prefetch import PacketRing
+    from xmaps.io.prefetch import PacketRing
 
     ring = PacketRing(packet_capacity=64, n_slots=16)
     ev = _ring_events(rng, 64 * 16)
@@ -359,7 +360,7 @@ def test_ring_overrun_and_retire(rng):
 
 
 def test_ring_frame_meta_rejects_too_many_packets(rng):
-    from xmaps_tpu.io.prefetch import PacketRing
+    from xmaps.io.prefetch import PacketRing
 
     ring = PacketRing(packet_capacity=16, n_slots=32)
     ev = _ring_events(rng, 16 * 9)

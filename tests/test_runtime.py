@@ -5,15 +5,15 @@ reference, SURVEY.md §4.2)."""
 import numpy as np
 import pytest
 
-from xmaps_tpu.config import RuntimeParams
-from xmaps_tpu.io.evt_encode import encode_evt2
-from xmaps_tpu.io.event_iterator import FileEventsIterator
-from xmaps_tpu.models.depth_pipeline import XMapsDepthEngine
-from xmaps_tpu.runtime.processor import DepthReprojectionProcessor
-from xmaps_tpu.runtime.pipe import DepthReprojectionPipe
-from xmaps_tpu.runtime.trigger_finder import RobustTriggerFinder
-from xmaps_tpu.utils.stats import StatsPrinter
-from xmaps_tpu.utils.synthetic import (
+from xmaps.config import RuntimeParams
+from xmaps.io.evt_encode import encode_evt2
+from xmaps.io.event_iterator import FileEventsIterator
+from xmaps.models.depth_pipeline import XMapsDepthEngine
+from xmaps.runtime.processor import DepthReprojectionProcessor
+from xmaps.runtime.pipe import DepthReprojectionPipe
+from xmaps.runtime.trigger_finder import RobustTriggerFinder
+from xmaps.utils.stats import StatsPrinter
+from xmaps.utils.synthetic import (
     make_synthetic_calibration,
     simulate_sequence,
 )
@@ -86,7 +86,7 @@ def _make_processor(calib, prestage=True):
         engine=engine,
         prestage=prestage,
     )
-    from xmaps_tpu.runtime.processor import FakeWindow
+    from xmaps.runtime.processor import FakeWindow
 
     proc._window = FakeWindow()
     return proc, shown

@@ -15,15 +15,11 @@ harmless because the winner test is local and padding never wins).
 import numpy as np
 import pytest
 
-from xmaps_tpu.models.depth_pipeline import XMapsDepthEngine
-from xmaps_tpu.ops.event_batch import EventBatch
-from xmaps_tpu.ops.frame_pipeline import depth_frame
-from xmaps_tpu.ops.pallas_events import (
-    build_event_gather_hbm_plan,
-    build_event_gather_plan,
-)
-from xmaps_tpu.ops.scatter import scatter_disp_packed
-from xmaps_tpu.utils.synthetic import (
+from xmaps.models.depth_pipeline import XMapsDepthEngine
+from xmaps.ops.event_batch import EventBatch
+from xmaps.ops.frame_pipeline import depth_frame
+from xmaps.ops.scatter import scatter_disp_packed
+from xmaps.utils.synthetic import (
     make_synthetic_calibration,
     simulate_plane_events,
 )
@@ -38,7 +34,7 @@ def _runs_case(rng, n_real, cap, h, w, key_space, window):
     Mirrors the host's sort contract: within each run the lanes the
     scatter will REJECT (the exact ok mask: inlier, window bounds, disp
     range) come first, kept lanes follow in ascending priority."""
-    from xmaps_tpu.ops.scatter import PACK
+    from xmaps.ops.scatter import PACK
 
     ky = rng.integers(0, key_space[0], n_real)
     kx = rng.integers(0, key_space[1], n_real)
@@ -92,19 +88,9 @@ def test_runs_matches_max_oracle(seed, window):
         ys, xs, disp, inlier, method="runs", run_keys=(ys, xs), **kw
     )
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-    # split_stores is an identity transform (optimization_barrier only);
-    # the default (None) resolves to True for "runs", False otherwise --
-    # pin both explicit states bit-equal for both methods
-    for method, extra in (
-        ("runs", dict(run_keys=(ys, xs))),
-        ("sorted", {}),
-    ):
-        for split_stores in (True, False):
-            split = scatter_disp_packed(
-                ys, xs, disp, inlier, method=method,
-                split_stores=split_stores, **extra, **kw,
-            )
-            np.testing.assert_array_equal(np.asarray(split), np.asarray(ref))
+    # the device-sorted strategy resolves the same winners in any order
+    srt = scatter_disp_packed(ys, xs, disp, inlier, method="sorted", **kw)
+    np.testing.assert_array_equal(np.asarray(srt), np.asarray(ref))
 
 
 def test_runs_all_reject_run():
@@ -123,19 +109,24 @@ def test_runs_all_reject_run():
     assert out[5, 1] != 0
 
 
+def _cfg(engine, use_crop):
+    """The engine's config with its tail crop window, or without one (the
+    full rect frame)."""
+    return engine.cfg if use_crop else engine.cfg.replace(tail_crop=None)
+
+
 @pytest.mark.parametrize("camera_perspective", [False, True])
-@pytest.mark.parametrize("hbm", [False, True])
-def test_engine_target_sorted_frame_bit_exact(camera_perspective, hbm):
-    """make_sorted_batch's target secondary key + depth_frame
-    presort_runs must reproduce the arrival-order device-sorted frame
-    bit-for-bit, with duplicated events forcing same-target runs."""
+@pytest.mark.parametrize("use_crop", [False, True])
+def test_engine_target_sorted_frame_bit_exact(camera_perspective, use_crop):
+    """make_sorted_batch's target key + depth_frame presort_runs must
+    reproduce the arrival-order frame bit-for-bit, with and without the
+    crop window, with duplicated events forcing same-target runs."""
     calib = make_synthetic_calibration(
         camera_width=128, camera_height=96,
         projector_width=96, projector_height=128,
     )
     engine = XMapsDepthEngine.from_calibration(
         calib, event_capacity=CAPACITY, z_near=0.2, z_far=1.2,
-        use_pallas_tail=False, use_pallas_events=False,
         camera_perspective=camera_perspective,
     )
     events = simulate_plane_events(
@@ -146,27 +137,15 @@ def test_engine_target_sorted_frame_bit_exact(camera_perspective, hbm):
     # distinct priorities (the duplicate, arriving later, must win)
     events = np.concatenate([events, events[::5]])[: CAPACITY - 64]
 
-    if hbm:
-        plan = build_event_gather_hbm_plan(
-            engine.tables.cam_map_packed, engine.x_map_np, band_rows=32
-        )
-    else:
-        plan = build_event_gather_plan(
-            engine.tables.cam_map_packed, engine.x_map_np
-        )
-    engine.event_plan = plan
-
-    b, prio, bands = engine.make_sorted_batch(events)
+    engine.cfg = _cfg(engine, use_crop)  # the host key mirrors the window
+    b, prio = engine.make_sorted_batch(events)
     ref = depth_frame(
         EventBatch.from_structured(events, CAPACITY),
-        engine.tables, engine.cfg,
-        event_plan=plan, pallas_interpret=True,
+        engine.tables, engine.cfg.replace(tail_crop=None),
     )
     got = depth_frame(
         b, engine.tables, engine.cfg,
-        event_plan=plan, pallas_interpret=True,
-        presort_priority=prio, presort_bands=bands,
-        presort_runs=True,
+        presort_priority=prio, presort_runs=True,
     )
     np.testing.assert_array_equal(
         np.asarray(got.disp_map), np.asarray(ref.disp_map)
@@ -185,31 +164,33 @@ def test_presort_runs_requires_host_sort():
     )
     engine = XMapsDepthEngine.from_calibration(
         calib, event_capacity=CAPACITY, z_near=0.2, z_far=1.2,
-        use_pallas_tail=False, use_pallas_events=False,
     )
     events = simulate_plane_events(
         calib, depth_m=0.6, subsample=0.1, jitter_us=2.0,
         rng=np.random.default_rng(7),
     )
-    plan = build_event_gather_plan(
-        engine.tables.cam_map_packed, engine.x_map_np
-    )
     with pytest.raises(ValueError, match="presort_runs"):
         depth_frame(
             EventBatch.from_structured(events, CAPACITY),
-            engine.tables, engine.cfg,
-            event_plan=plan, pallas_interpret=True, presort_runs=True,
+            engine.tables, engine.cfg, presort_runs=True,
+        )
+    # a host priority needs integer timestamps and no frame filter
+    b, prio = engine.make_sorted_batch(events)
+    with pytest.raises(ValueError, match="presort_priority"):
+        depth_frame(
+            b, engine.tables, engine.cfg.replace(frame_filter="first_per_xy"),
+            presort_priority=prio,
         )
 
 
-@pytest.mark.parametrize("hbm", [False, True])
-def test_compact_presort_staging_bit_exact(hbm):
+@pytest.mark.parametrize("use_crop", [False, True])
+def test_compact_presort_staging_bit_exact(use_crop):
     """Host target-sorted compact staging (HostStagingPool presort_fn +
     lane-index priorities) must reproduce the arrival-order program
-    bit-for-bit, duplicates included."""
+    bit-for-bit with and without the crop window, duplicates included."""
     import jax.numpy as jnp
 
-    from xmaps_tpu.io.prefetch import (
+    from xmaps.io.prefetch import (
         CompactLayout,
         HostStagingPool,
         unpack_staged_compact,
@@ -221,21 +202,13 @@ def test_compact_presort_staging_bit_exact(hbm):
     )
     engine = XMapsDepthEngine.from_calibration(
         calib, event_capacity=CAPACITY, z_near=0.2, z_far=1.2,
-        use_pallas_tail=False, use_pallas_events=False,
     )
-    if hbm:
-        engine.event_plan = build_event_gather_hbm_plan(
-            engine.tables.cam_map_packed, engine.x_map_np, band_rows=32
-        )
-    else:
-        engine.event_plan = build_event_gather_plan(
-            engine.tables.cam_map_packed, engine.x_map_np
-        )
     events = simulate_plane_events(
         calib, depth_m=0.6, subsample=0.25, jitter_us=2.0,
         rng=np.random.default_rng(9),
     )
     events = np.concatenate([events, events[::4]])[: CAPACITY - 32]
+    engine.cfg = _cfg(engine, use_crop)
 
     layout = CompactLayout.for_pipeline(engine.cfg)
     assert layout is not None
@@ -244,22 +217,18 @@ def test_compact_presort_staging_bit_exact(hbm):
         presort_fn=engine.compact_presort,
     )
     staged = pool.stage_compact(events)
-    assert staged.bands is not None
-    assert staged.bands.shape == ((CAPACITY // 1024, 2) if hbm else (0, 2))
+    assert staged.presorted
 
     batch, ts = unpack_staged_compact(staged, layout)
     got = depth_frame(
         batch, engine.tables, engine.cfg,
-        event_plan=engine.event_plan, pallas_interpret=True,
         t_scaled=ts,
         presort_priority=jnp.arange(CAPACITY, dtype=jnp.int32),
-        presort_bands=staged.bands if staged.bands.shape[0] else None,
         presort_runs=True,
     )
     ref = depth_frame(
         EventBatch.from_structured(events, CAPACITY),
-        engine.tables, engine.cfg,
-        event_plan=engine.event_plan, pallas_interpret=True,
+        engine.tables, engine.cfg.replace(tail_crop=None),
     )
     np.testing.assert_array_equal(
         np.asarray(got.disp_map), np.asarray(ref.disp_map)
@@ -272,17 +241,17 @@ def test_compact_presort_staging_bit_exact(hbm):
 
 
 @pytest.mark.parametrize("camera_perspective", [False, True])
-@pytest.mark.parametrize("use_tail_plan", [False, True])
-def test_host_ok_mirror_matches_device(camera_perspective, use_tail_plan):
+@pytest.mark.parametrize("use_crop", [False, True])
+def test_host_ok_mirror_matches_device(camera_perspective, use_crop):
     """The host sort key's low bit must equal the scatter's exact keep
     mask (run winner = last kept lane relies on it; a mismatch is a
     unique-indices violation the bit-exact tests could mask as UB)."""
     import jax.numpy as jnp
 
-    from xmaps_tpu.config import X_OFFSET
-    from xmaps_tpu.io.prefetch import _scale_time_int_host
-    from xmaps_tpu.ops.disparity import compute_event_disparity
-    from xmaps_tpu.ops.scatter import PACK
+    from xmaps.config import X_OFFSET
+    from xmaps.io.prefetch import _scale_time_int_host
+    from xmaps.ops.disparity import compute_event_disparity
+    from xmaps.ops.scatter import PACK
 
     calib = make_synthetic_calibration(
         camera_width=128, camera_height=96,
@@ -290,9 +259,10 @@ def test_host_ok_mirror_matches_device(camera_perspective, use_tail_plan):
     )
     engine = XMapsDepthEngine.from_calibration(
         calib, event_capacity=CAPACITY, z_near=0.2, z_far=1.2,
-        use_pallas_tail=use_tail_plan, use_pallas_events=False,
         camera_perspective=camera_perspective,
     )
+    if not use_crop:
+        engine.cfg = engine.cfg.replace(tail_crop=None)
     events = simulate_plane_events(
         calib, depth_m=0.6, subsample=0.3, jitter_us=2.0,
         rng=np.random.default_rng(13),
@@ -301,7 +271,7 @@ def test_host_ok_mirror_matches_device(camera_perspective, use_tail_plan):
     n = len(events)
 
     ts = _scale_time_int_host(events["t"], engine.cfg.t_px_scale)
-    _, key, _ = engine._host_target_key(events, ts)
+    key, _ = engine._host_target_key(events, ts)
     host_ok = (np.asarray(key) & 1).astype(bool)
 
     # device-side keep mask, reconstructed from the disparity stage the
@@ -324,12 +294,9 @@ def test_host_ok_mirror_matches_device(camera_perspective, use_tail_plan):
     else:
         ys = np.asarray(res.y_rect).astype(np.int64)
         xs = np.asarray(res.x_proj).astype(np.int64) - X_OFFSET
-        tp = engine.tail_plan
-        if tp is not None:
-            oy, ox, wh, ww = tp.crop_row0, tp.crop_col0, tp.H, tp.W
-        else:
-            oy = ox = 0
-            wh, ww = engine.cfg.rect_height, engine.cfg.rect_width
+        oy, ox, wh, ww = engine.cfg.tail_crop or (
+            0, 0, engine.cfg.rect_height, engine.cfg.rect_width
+        )
     dev_ok = (
         inlier
         & (ys - oy >= 0) & (ys - oy < wh)
@@ -355,7 +322,7 @@ def test_runs_single_run_whole_array():
         ys, xs, disp, inlier, height=8, width=16,
         priority=prio, method="runs", run_keys=(ys, xs),
     ))
-    from xmaps_tpu.ops.scatter import PACK
+    from xmaps.ops.scatter import PACK
     assert out[5, 9] == (n - 1 + 1) * PACK + (n - 1)
     assert (out != 0).sum() == 1
 
@@ -383,30 +350,28 @@ def test_runs_trailing_padding_extends_last_run():
         ys, xs, disp, inlier, height=4, width=4,
         priority=prio, method="runs", run_keys=(ys, xs),
     ))
-    from xmaps_tpu.ops.scatter import PACK
+    from xmaps.ops.scatter import PACK
     assert out[2, 3] == 2 * PACK + 8
 
 
 def test_make_sorted_batch_rejects_float_timestamps():
     """Float-t streams must be rejected (int64 staging would silently
-    truncate them and the row-only key would break the runs contract);
-    integer streams must report runs_ok."""
+    truncate them and the host cannot mirror float time binning);
+    integer streams stage as (batch, arrival priorities)."""
     calib = make_synthetic_calibration(
         camera_width=128, camera_height=96,
         projector_width=96, projector_height=128,
     )
     engine = XMapsDepthEngine.from_calibration(
         calib, event_capacity=CAPACITY, z_near=0.2, z_far=1.2,
-        use_pallas_tail=False, use_pallas_events=False,
     )
     events = simulate_plane_events(
         calib, depth_m=0.6, subsample=0.1, jitter_us=2.0,
         rng=np.random.default_rng(3),
     )
-    sb = engine.make_sorted_batch(events)
-    assert sb.runs_ok
-    b, prio, bands = sb  # still unpacks as the historical 3-tuple
-    assert prio is not None
+    b, prio = engine.make_sorted_batch(events)
+    n = len(events)
+    assert sorted(np.asarray(prio)[:n].tolist()) == list(range(n))
 
     fdtype = [("x", "<u2"), ("y", "<u2"), ("p", "<i2"), ("t", "<f8")]
     fevents = np.zeros(len(events), dtype=fdtype)
@@ -420,18 +385,12 @@ def test_make_sorted_batch_rejects_float_timestamps():
 def test_process_frames_float_t_falls_back_to_unsorted():
     """process_frames with float-t frames must skip host presorting (the
     runs scatter contract cannot hold) and still match process_frame."""
-    from xmaps_tpu.ops.pallas_events import build_event_gather_plan
-
     calib = make_synthetic_calibration(
         camera_width=128, camera_height=96,
         projector_width=96, projector_height=128,
     )
     engine = XMapsDepthEngine.from_calibration(
         calib, event_capacity=CAPACITY, z_near=0.2, z_far=1.2,
-        use_pallas_tail=False, use_pallas_events=False,
-    )
-    engine.event_plan = build_event_gather_plan(
-        engine.tables.cam_map_packed, engine.x_map_np
     )
     events = simulate_plane_events(
         calib, depth_m=0.6, subsample=0.15, jitter_us=2.0,
@@ -444,6 +403,7 @@ def test_process_frames_float_t_falls_back_to_unsorted():
     fevents["t"] = events["t"].astype(np.float64)
 
     group = engine.process_frames([fevents])
+    assert list(engine._group_cache) == [(1, False)]
     ref = engine.process_frame(fevents)
     np.testing.assert_array_equal(
         np.asarray(group[0].depth), np.asarray(ref.depth)
@@ -461,10 +421,10 @@ def test_host_target_key_corrupt_coordinates(camera_perspective):
     mask (the device clips LUT indices; the host mirrors that)."""
     import jax.numpy as jnp
 
-    from xmaps_tpu.config import X_OFFSET
-    from xmaps_tpu.io.prefetch import _scale_time_int_host
-    from xmaps_tpu.ops.disparity import compute_event_disparity
-    from xmaps_tpu.ops.scatter import PACK
+    from xmaps.config import X_OFFSET
+    from xmaps.io.prefetch import _scale_time_int_host
+    from xmaps.ops.disparity import compute_event_disparity
+    from xmaps.ops.scatter import PACK
 
     calib = make_synthetic_calibration(
         camera_width=128, camera_height=96,
@@ -472,7 +432,6 @@ def test_host_target_key_corrupt_coordinates(camera_perspective):
     )
     engine = XMapsDepthEngine.from_calibration(
         calib, event_capacity=CAPACITY, z_near=0.2, z_far=1.2,
-        use_pallas_tail=False, use_pallas_events=False,
         camera_perspective=camera_perspective,
     )
     events = simulate_plane_events(
@@ -485,7 +444,7 @@ def test_host_target_key_corrupt_coordinates(camera_perspective):
     n = len(events)
 
     ts = _scale_time_int_host(events["t"], engine.cfg.t_px_scale)
-    _, key, _ = engine._host_target_key(events, ts)  # must not raise
+    key, _ = engine._host_target_key(events, ts)  # must not raise
     host_ok = (np.asarray(key) & 1).astype(bool)
 
     batch = EventBatch.from_structured(events, n)
@@ -506,8 +465,7 @@ def test_host_target_key_corrupt_coordinates(camera_perspective):
     else:
         ys = np.asarray(res.y_rect).astype(np.int64)
         xs = np.asarray(res.x_proj).astype(np.int64) - X_OFFSET
-        oy = ox = 0
-        wh, ww = engine.cfg.rect_height, engine.cfg.rect_width
+        oy, ox, wh, ww = engine.cfg.tail_crop
     dev_ok = (
         inlier
         & (ys - oy >= 0) & (ys - oy < wh)
@@ -518,8 +476,8 @@ def test_host_target_key_corrupt_coordinates(camera_perspective):
 
 
 @pytest.mark.parametrize("camera_perspective", [False, True])
-@pytest.mark.parametrize("hbm", [False, True])
-def test_winner_batch_bit_exact(camera_perspective, hbm):
+@pytest.mark.parametrize("use_crop", [False, True])
+def test_winner_batch_bit_exact(camera_perspective, use_crop):
     """Host winner compaction (make_winner_batch + presort_unique) must
     reproduce the full-batch frame bit-for-bit -- same packed winners
     (original arrival priorities), same disp/depth/frame, and the
@@ -531,7 +489,6 @@ def test_winner_batch_bit_exact(camera_perspective, hbm):
     )
     engine = XMapsDepthEngine.from_calibration(
         calib, event_capacity=CAPACITY, z_near=0.2, z_far=1.2,
-        use_pallas_tail=False, use_pallas_events=False,
         camera_perspective=camera_perspective,
     )
     events = simulate_plane_events(
@@ -540,31 +497,20 @@ def test_winner_batch_bit_exact(camera_perspective, hbm):
     )
     # duplicates force contested pixels whose LAST arrival must win
     events = np.concatenate([events, events[::4]])[: CAPACITY - 32]
-
-    if hbm:
-        plan = build_event_gather_hbm_plan(
-            engine.tables.cam_map_packed, engine.x_map_np, band_rows=32
-        )
-    else:
-        plan = build_event_gather_plan(
-            engine.tables.cam_map_packed, engine.x_map_np
-        )
-    engine.event_plan = plan
+    engine.cfg = _cfg(engine, use_crop)
 
     wb = engine.make_winner_batch(events)
-    batch_w, ts_w, prio_w, bands_w, n_inl = wb
+    batch_w, ts_w, prio_w, n_inl = wb
     assert batch_w.x.shape[0] <= CAPACITY
 
     ref = depth_frame(
         EventBatch.from_structured(events, CAPACITY),
-        engine.tables, engine.cfg,
-        event_plan=plan, pallas_interpret=True,
+        engine.tables, engine.cfg.replace(tail_crop=None),
     )
     got = depth_frame(
         batch_w, engine.tables, engine.cfg,
-        event_plan=plan, pallas_interpret=True,
         t_scaled=ts_w,
-        presort_priority=prio_w, presort_bands=bands_w,
+        presort_priority=prio_w,
         presort_unique=True, host_num_inliers=n_inl,
     )
     np.testing.assert_array_equal(
@@ -584,21 +530,16 @@ def test_winner_batch_empty_frame():
     )
     engine = XMapsDepthEngine.from_calibration(
         calib, event_capacity=CAPACITY, z_near=0.2, z_far=1.2,
-        use_pallas_tail=False, use_pallas_events=False,
-    )
-    engine.event_plan = build_event_gather_plan(
-        engine.tables.cam_map_packed, engine.x_map_np
     )
     events = simulate_plane_events(
         calib, depth_m=0.6, subsample=0.1, rng=np.random.default_rng(1),
     )[:0]
     wb = engine.make_winner_batch(events)
-    batch_w, ts_w, prio_w, bands_w, n_inl = wb
+    batch_w, ts_w, prio_w, n_inl = wb
     assert n_inl == 0
     got = depth_frame(
         batch_w, engine.tables, engine.cfg,
-        event_plan=engine.event_plan, pallas_interpret=True,
-        t_scaled=ts_w, presort_priority=prio_w, presort_bands=bands_w,
+        t_scaled=ts_w, presort_priority=prio_w,
         presort_unique=True, host_num_inliers=n_inl,
     )
     assert int(got.num_inliers) == 0
@@ -612,7 +553,6 @@ def test_winner_batch_requires_integer_t():
     )
     engine = XMapsDepthEngine.from_calibration(
         calib, event_capacity=CAPACITY, z_near=0.2, z_far=1.2,
-        use_pallas_tail=False, use_pallas_events=False,
     )
     ev = simulate_plane_events(
         calib, depth_m=0.6, subsample=0.1, rng=np.random.default_rng(2),

@@ -1,6 +1,6 @@
-"""Multi-chip sharding tests on the virtual 8-device CPU mesh.
+"""Multi-device sharding tests on the virtual 8-device CPU mesh.
 
-The sharded pipeline must be bit-identical to the single-chip program:
+The sharded pipeline must be bit-identical to the single-device program:
 the packed scatter-max is associative and event indices are global, so
 event-parallel execution preserves NumPy last-write-wins semantics.
 """
@@ -10,13 +10,13 @@ import pytest
 
 import jax
 
-from xmaps_tpu.calib.maps import CamProjMaps
-from xmaps_tpu.config import PipelineConfig
-from xmaps_tpu.ops.event_batch import EventBatch
-from xmaps_tpu.ops.frame_pipeline import DeviceTables, depth_frame
-from xmaps_tpu.ops.xmap import build_x_map_numpy
-from xmaps_tpu.parallel import make_mesh, make_sharded_pipeline, shard_batches
-from xmaps_tpu.utils.synthetic import make_synthetic_calibration, simulate_plane_events
+from xmaps.calib.maps import CamProjMaps
+from xmaps.config import PipelineConfig
+from xmaps.ops.event_batch import EventBatch
+from xmaps.ops.frame_pipeline import DeviceTables, depth_frame
+from xmaps.ops.xmap import build_x_map_numpy
+from xmaps.parallel import make_mesh, make_sharded_pipeline, shard_batches
+from xmaps.utils.synthetic import make_synthetic_calibration, simulate_plane_events
 
 
 @pytest.fixture(scope="module")
@@ -37,6 +37,7 @@ def rig():
         projector_height=calib.projector_height,
         rect_width=calib.rect_image_width,
         rect_height=calib.rect_image_height,
+        p03=float(maps.P2[0, 3]),
         event_capacity=16384,
         z_near=0.2,
         z_far=1.2,
@@ -120,71 +121,64 @@ def test_mesh_shapes():
 
 
 def test_sharded_pallas_plans_match(rig):
-    """Data-parallel mesh with the Pallas plans (interpret mode) must be
-    bit-identical to the plan-free sharded pipeline -- the multi-chip
-    deployment runs the full single-chip fused kernels per device."""
+    """Data-parallel mesh running the engine's own per-frame program
+    (host target-sorted staging, runs scatter, crop window) must be
+    bit-identical to the plain full-frame sharded pipeline."""
     calib, cfg, tables = rig
     if len(jax.devices()) < 2:
         pytest.skip("needs 2 devices")
 
-    from xmaps_tpu.ops.pallas_events import build_event_gather_plan
-    from xmaps_tpu.ops.pallas_tail import build_tail_plan
-
-    maps = CamProjMaps(calib)
-    event_plan = build_event_gather_plan(
-        tables.cam_map_packed, np.asarray(tables.x_map)
+    from xmaps.models.depth_pipeline import XMapsDepthEngine
+    from xmaps.parallel.sharding import (
+        make_group_sharded_pipeline,
+        shard_staged_group,
     )
-    tail_plan = build_tail_plan(
-        maps.disp_proj_mapx_i16,
-        maps.disp_proj_mapy_i16,
-        calib.rect_image_height,
-        calib.rect_image_width,
-        p03=float(maps.P2[0, 3]),
-        z_near=cfg.z_near,
+
+    engine = XMapsDepthEngine.from_calibration(
+        calib, event_capacity=cfg.event_capacity, z_near=cfg.z_near,
         z_far=cfg.z_far,
     )
-
-    depths = [0.5, 0.7]
-    batches = [
-        EventBatch.from_structured(
-            simulate_plane_events(calib, depth_m=z, jitter_us=2.0),
-            cfg.event_capacity,
-        )
-        for z in depths
+    assert engine.cfg.tail_crop is not None
+    events = [
+        simulate_plane_events(calib, depth_m=z, jitter_us=2.0)
+        for z in (0.5, 0.7)
     ]
     mesh = make_mesh(jax.devices()[:2], data=2, event=1)
     ref_pipe = make_sharded_pipeline(cfg, tables, mesh)
-    fast_pipe = make_sharded_pipeline(
-        cfg, tables, mesh,
-        tail_plan=tail_plan, event_plan=event_plan, pallas_interpret=True,
+    fast_pipe = make_group_sharded_pipeline(
+        engine.cfg, engine.tables, mesh, presort=True,
     )
-    stacked = shard_batches(batches, mesh, cfg)
-    want = ref_pipe(stacked)
-    got = fast_pipe(stacked)
+    want = ref_pipe(
+        shard_batches(
+            [EventBatch.from_structured(ev, cfg.event_capacity) for ev in events],
+            mesh, cfg,
+        )
+    )
+    got = fast_pipe(
+        *shard_staged_group([engine.make_sorted_batch(ev) for ev in events], mesh)
+    )
     np.testing.assert_array_equal(np.asarray(got.depth), np.asarray(want.depth))
     np.testing.assert_array_equal(
         np.asarray(got.frame_bgr), np.asarray(want.frame_bgr)
+    )
+    np.testing.assert_array_equal(
+        np.asarray(got.num_inliers), np.asarray(want.num_inliers)
     )
 
 
 def test_group_sharded_live_path_matches_process_frame(rig):
     """The LIVE group dispatch (host target-sorted staging + runs scatter
-    + fused kernels) sharded over the data axis must match the
+    + the engine's tail) sharded over the data axis must match the
     single-chip process_frame bit-for-bit, including list padding for a
     frame count that does not divide the mesh."""
     calib, cfg, tables = rig
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 devices")
 
-    from xmaps_tpu.models.depth_pipeline import XMapsDepthEngine
-    from xmaps_tpu.ops.pallas_events import build_event_gather_plan
+    from xmaps.models.depth_pipeline import XMapsDepthEngine
 
     engine = XMapsDepthEngine.from_calibration(
         calib, event_capacity=4096, z_near=0.2, z_far=1.2,
-        use_pallas_tail=False, use_pallas_events=False,
-    )
-    engine.event_plan = build_event_gather_plan(
-        engine.tables.cam_map_packed, engine.x_map_np
     )
     rng = np.random.default_rng(21)
     frames = [
@@ -195,9 +189,7 @@ def test_group_sharded_live_path_matches_process_frame(rig):
         for i in range(6)  # 6 frames on a 4-device mesh -> 2 pad frames
     ]
     mesh = make_mesh(jax.devices()[:4], data=4, event=1)
-    out = engine.process_frames_sharded(
-        frames, mesh, pallas_interpret=True
-    )
+    out = engine.process_frames_sharded(frames, mesh)
     assert len(out) == 6
     for ev, got in zip(frames, out):
         ref = engine.process_frame(ev)
@@ -213,3 +205,39 @@ def test_group_sharded_live_path_matches_process_frame(rig):
         assert int(got.num_inliers) == int(ref.num_inliers)
     # one compiled program per (B, mode, mesh)
     assert len(engine._sharded_group_cache) == 1
+
+
+@pytest.mark.parametrize("data,event", [(2, 2), (2, 4)])
+def test_event_sharded_crop_window_matches_full_frame(rig, data, event):
+    """The event-axis all-reduce over the tail's crop window (a few
+    percent of the map at the ESL rig) is invisible in the result: equal
+    to the single-device full-frame program."""
+    calib, cfg, tables = rig
+    if len(jax.devices()) < data * event:
+        pytest.skip(f"needs {data * event} devices")
+    from xmaps.calib.maps import CamProjMaps
+    from xmaps.ops.image_tail import tail_crop_window
+
+    maps = CamProjMaps(calib)
+    crop = tail_crop_window(
+        maps.disp_proj_mapx_i16, maps.disp_proj_mapy_i16,
+        calib.rect_image_height, calib.rect_image_width,
+    )
+    assert crop[2] * crop[3] < cfg.rect_height * cfg.rect_width
+    batches = [
+        EventBatch.from_structured(
+            simulate_plane_events(calib, depth_m=z, jitter_us=2.0),
+            cfg.event_capacity,
+        )
+        for z in (0.5, 0.6, 0.7, 0.8)[:data]
+    ]
+    mesh = make_mesh(jax.devices()[: data * event], data=data, event=event)
+    pipeline = make_sharded_pipeline(cfg.replace(tail_crop=crop), tables, mesh)
+    out = pipeline(shard_batches(batches, mesh, cfg))
+    for i, b in enumerate(batches):
+        ref = depth_frame(b, tables, cfg)
+        for f in ("disp_map", "depth", "frame_bgr"):
+            np.testing.assert_array_equal(
+                np.asarray(getattr(out, f))[i], np.asarray(getattr(ref, f))
+            )
+        assert int(out.num_inliers[i]) == int(ref.num_inliers)

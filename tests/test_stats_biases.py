@@ -6,8 +6,8 @@ import time
 import numpy as np
 import pytest
 
-from xmaps_tpu.io.biases import Biases, load_bias_file
-from xmaps_tpu.utils.stats import SingleTimer, StatsPrinter
+from xmaps.io.biases import Biases, load_bias_file
+from xmaps.utils.stats import SingleTimer, StatsPrinter
 
 
 def test_stats_counters_metrics_timers(capsys):

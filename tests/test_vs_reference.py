@@ -1,6 +1,6 @@
 """Differential tests against the ACTUAL reference implementation.
 
-Everything else in tests/ compares xmaps_tpu to transcriptions
+Everything else in tests/ compares xmaps to transcriptions
 (tests/oracle.py); a transcription error would be invisible.  This module
 imports the reference modules from /root/reference/python directly and
 runs the reference's own per-frame code end to end -- rectify
@@ -9,7 +9,7 @@ runs the reference's own per-frame code end to end -- rectify
 (x_maps_disparity.py:9-32) -> scatter (cam_proj_calibration.py:299-317)
 -> dilate/remap (disp_to_depth.py:76-97) -> depth/colorize
 (disp_to_depth.py:47-141) -- on synthetic events, asserting bit-equality
-(or pinning exact deltas) against xmaps_tpu at every stage.
+(or pinning exact deltas) against xmaps at every stage.
 
 numba is shimmed with a passthrough jit/prange: the decorated reference
 functions are pure NumPy/Python and run unchanged (slowly, hence the
@@ -104,8 +104,8 @@ def ref_modules():
 @pytest.fixture(scope="module")
 def rig(ref_modules):
     """One small synthetic rig built BOTH ways from the same parameters."""
-    from xmaps_tpu.calib.maps import CamProjMaps
-    from xmaps_tpu.utils.synthetic import (
+    from xmaps.calib.maps import CamProjMaps
+    from xmaps.utils.synthetic import (
         make_synthetic_calibration,
         simulate_plane_events,
     )
@@ -143,7 +143,7 @@ def rig(ref_modules):
 
 @pytest.fixture(scope="module")
 def engine(rig):
-    from xmaps_tpu.models.depth_pipeline import XMapsDepthEngine
+    from xmaps.models.depth_pipeline import XMapsDepthEngine
 
     return XMapsDepthEngine.from_calibration(
         rig.calib, event_capacity=rig.cap, z_near=0.2, z_far=1.2
@@ -157,7 +157,7 @@ def engine(rig):
 
 def test_rectification_luts_bit_equal(rig):
     # the reference packs the projector inverse map as one cv2 2-channel
-    # CV_16SC2 array (cam_proj_calibration.py:51-53); xmaps_tpu keeps the
+    # CV_16SC2 array (cam_proj_calibration.py:51-53); xmaps keeps the
     # planes separate
     ref_xy = np.asarray(rig.ref_maps.disp_proj_mapxy_i16)
     np.testing.assert_array_equal(
@@ -218,8 +218,8 @@ def test_x_map_bit_equal(rig, ref_xmaps_disp):
     """The host (f64) build matches the reference search exactly; the
     device (f32) build is pinned separately in tests/test_ops.py (argmin
     tie flips < 2e-3 of entries)."""
-    from xmaps_tpu.config import X_OFFSET
-    from xmaps_tpu.ops.xmap import build_x_map_numpy
+    from xmaps.config import X_OFFSET
+    from xmaps.ops.xmap import build_x_map_numpy
 
     assert ref_xmaps_disp.X_OFFSET == X_OFFSET  # x_maps_disparity.py:50
     tm = rig.my_maps.build_rectified_time_map()
@@ -283,7 +283,7 @@ def test_frame_projector_view_bit_equal(rig, ref_modules, ref_xmaps_disp,
 
 
 def test_frame_camera_view_bit_equal(rig, ref_modules, ref_xmaps_disp):
-    from xmaps_tpu.models.depth_pipeline import XMapsDepthEngine
+    from xmaps.models.depth_pipeline import XMapsDepthEngine
 
     eng = XMapsDepthEngine.from_calibration(
         rig.calib, event_capacity=rig.cap, z_near=0.2, z_far=1.2,
@@ -322,7 +322,7 @@ def test_depth_surface_bit_equal(rig, ref_modules, ref_xmaps_disp, engine):
 # keeps the FIRST event for small arrays but the LAST for realistic event
 # counts (the vectorized mapiter path writes in memory order) -- so the
 # reference's "first event" filters silently became "last event" under
-# NumPy 2.  xmaps_tpu implements the documented intent (true first by
+# NumPy 2.  xmaps implements the documented intent (true first by
 # stream order) deterministically (ops/filters.py).  Therefore:
 #
 # - full-path bit-equality is asserted on a WINNER-NEUTRAL event set
@@ -333,7 +333,7 @@ def test_depth_surface_bit_equal(rig, ref_modules, ref_xmaps_disp, engine):
 # - on the jittered set, the surviving PIXEL SET (well-defined regardless
 #   of winner) is asserted equal, and full equality only for last_per_xy
 #   (the one filter whose executed winner is stable in practice);
-# - xmaps_tpu's own winner choice is pinned to the documented intent.
+# - xmaps's own winner choice is pinned to the documented intent.
 # ---------------------------------------------------------------------------
 
 _FILTER_PAIRS = [
@@ -365,7 +365,7 @@ def neutral_evs(rig):
 def test_filtered_frame_bit_equal_winner_neutral(
     rig, ref_modules, ref_xmaps_disp, neutral_evs, my_name, ref_name
 ):
-    from xmaps_tpu.models.depth_pipeline import XMapsDepthEngine
+    from xmaps.models.depth_pipeline import XMapsDepthEngine
 
     # the pipe's polarity filter runs upstream of the dedup filters
     # (depth_reprojection_pipe.py:110-118): the reference filter requires
@@ -390,7 +390,7 @@ def test_filtered_frame_bit_equal_last_per_xy(rig, ref_modules,
     """last_per_xy on the jittered set: the forward duplicate scatter's
     executed winner is the stream-order last on every NumPy version
     observed, so full-path equality holds with real duplicate conflicts."""
-    from xmaps_tpu.models.depth_pipeline import XMapsDepthEngine
+    from xmaps.models.depth_pipeline import XMapsDepthEngine
 
     pos = rig.evs[rig.evs["p"] == 1]
     ref = _ref_frame(
@@ -412,8 +412,8 @@ def test_filter_survivor_pixels_match(rig, ref_modules, my_name, ref_name):
     exactly on the jittered (conflicting) event set."""
     import jax
 
-    from xmaps_tpu.ops.event_batch import EventBatch
-    from xmaps_tpu.ops.filters import apply_frame_filter
+    from xmaps.ops.event_batch import EventBatch
+    from xmaps.ops.filters import apply_frame_filter
 
     ref_filter = getattr(ref_modules.fef, ref_name)()
     evs = rig.evs[rig.evs["p"] == 1]  # upstream polarity filter (pipe)
@@ -462,13 +462,13 @@ def test_filter_survivor_pixels_match(rig, ref_modules, my_name, ref_name):
 
 
 def test_first_per_xy_winner_is_stream_first(rig):
-    """Pin xmaps_tpu's winner to the documented intent: the FIRST event
+    """Pin xmaps's winner to the documented intent: the FIRST event
     per pixel in stream order (the reference's reversed-scatter idiom is
     numpy-version-dependent; see the section comment)."""
     import jax
 
-    from xmaps_tpu.ops.event_batch import EventBatch
-    from xmaps_tpu.ops.filters import apply_frame_filter
+    from xmaps.ops.event_batch import EventBatch
+    from xmaps.ops.filters import apply_frame_filter
 
     batch = EventBatch.from_structured(rig.evs, rig.cap)
     fb = apply_frame_filter(
@@ -570,7 +570,7 @@ def ref_trigger_finder():
 def _packet_stream(rig, n_frames=6, fps=60, rng_seed=2):
     """Frame-shaped packets: bursts separated by blanking gaps, delivered
     in T/4 arrival packets like the live pipe (depth_reprojection.py)."""
-    from xmaps_tpu.utils.synthetic import simulate_sequence
+    from xmaps.utils.synthetic import simulate_sequence
 
     rng = np.random.default_rng(rng_seed)
     evs = simulate_sequence(
@@ -595,8 +595,8 @@ def _packet_stream(rig, n_frames=6, fps=60, rng_seed=2):
 
 
 def test_trigger_finder_frames_bit_equal(rig, ref_trigger_finder):
-    from xmaps_tpu.runtime.trigger_finder import RobustTriggerFinder
-    from xmaps_tpu.utils.stats import StatsPrinter
+    from xmaps.runtime.trigger_finder import RobustTriggerFinder
+    from xmaps.utils.stats import StatsPrinter
 
     packets = _packet_stream(rig)
     assert len(packets) >= 12
@@ -625,7 +625,7 @@ def test_trigger_finder_frames_bit_equal(rig, ref_trigger_finder):
     # the for loop falls through to `return -1` after pop_all), silently
     # dropping every buffered event.  On a clean 4-packets/frame stream
     # this loses most frames to startup/phase luck (observed here: 1 of
-    # ~5 emitted).  xmaps_tpu keeps the tail from the last pause onward
+    # ~5 emitted).  xmaps keeps the tail from the last pause onward
     # instead.  The boundary RULES are identical, so every frame the
     # reference does emit must be bit-identical to one of ours.
     assert len(mine_frames) >= 4, f"only {len(mine_frames)} frames"
@@ -648,7 +648,7 @@ def test_biases_differential(tmp_path):
         import biases as ref_biases
     finally:
         sys.path.remove(str(REF))
-    from xmaps_tpu.io import biases as my_biases
+    from xmaps.io import biases as my_biases
 
     bias_file = tmp_path / "cam.bias"
     bias_file.write_text(

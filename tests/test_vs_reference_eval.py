@@ -65,7 +65,7 @@ def test_esl_disparity_init_vs_reference(ref, rng):
     """Random sparse rectified maps; the reference window is hardcoded to
     [5, 900), wider than the image, so every clamping branch runs."""
     compute_depth_esl, _, _, _ = ref
-    from xmaps_tpu.apps.eval_esl import disparity_init_dense
+    from xmaps.apps.eval_esl import disparity_init_dense
 
     H, W = 24, 256
     cam = np.zeros((H, W), np.float32)
@@ -82,7 +82,7 @@ def test_esl_disparity_init_vs_reference(ref, rng):
 
 def test_projector_time_surface_vs_reference(ref):
     compute_depth_esl, _, _, _ = ref
-    from xmaps_tpu.calib.maps import generate_linear_projector_time_map
+    from xmaps.calib.maps import generate_linear_projector_time_map
 
     Wp, Hp = 54, 96  # reference proj_shape convention is (W, H)
     want = compute_depth_esl.get_projector_time_surface((Wp, Hp))
@@ -107,8 +107,8 @@ def test_mc3d_vs_reference(ref, rng, tmp_path):
     drift = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(drift)
 
-    from xmaps_tpu.apps.eval_mc3d import build_mc3d_tables, mc3d_disparity_dense
-    from xmaps_tpu.utils.synthetic import make_synthetic_calibration
+    from xmaps.apps.eval_mc3d import build_mc3d_tables, mc3d_disparity_dense
+    from xmaps.utils.synthetic import make_synthetic_calibration
 
     # The reference builds the CAMERA inverse map on the PROJECTOR grid
     # (mc3d_baseline.py:111-113), so the projector grid must cover the
@@ -173,7 +173,7 @@ def test_mc3d_vs_reference(ref, rng, tmp_path):
 
 def test_evaluation_stats_vs_reference(ref, rng, tmp_path):
     _, _, _, table = ref
-    from xmaps_tpu.utils.eval_metrics import evaluation_stats, load_and_filter
+    from xmaps.utils.eval_metrics import evaluation_stats, load_and_filter
 
     H, W = 37, 53
     gt = np.where(rng.random((H, W)) < 0.8, rng.uniform(0.2, 1.2, (H, W)), 0.0)
